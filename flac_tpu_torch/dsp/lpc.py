@@ -1,0 +1,219 @@
+"""LPC analysis, batched over frames — the encode side of flac_tpu.dsp.lpc
+(src/libFLAC/lpc.c:56-263 and the 32-bit residual at :265).
+
+Every constant and arange carries the dtype flac_tpu gets under
+jax_enable_x64 (float64 scalars, int64 aranges), so the two packages run the
+same arithmetic. The wide residual (`lpc_residual_limbs`) and the
+decode-side `lpc_restore` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from flac_tpu_torch.dsp import bitmath
+
+_LN2 = math.log(2.0)
+
+# XLA:CPU's TreeReductionRewriter window: a float32 sum over more than this
+# many elements runs as reduce-windows of 32 (zero-padded, low pad =
+# pad // 2) down to one reduce of <= 32 elements.
+_XLA_TREE_WINDOW = 32
+
+
+def _sum_in_order(p: torch.Tensor) -> torch.Tensor:
+    """Left-to-right float32 sum over the last axis."""
+    acc = p[..., 0]
+    for i in range(1, p.shape[-1]):
+        acc = acc + p[..., i]
+    return acc
+
+
+def _lag_product_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_t a[t] * b[t] in float32, in the order flac_tpu's jitted
+    autocorrelation takes on XLA:CPU, so the CPU port gives the same bits.
+
+    Longer than 32 elements, XLA materializes the products and sums them as
+    a tree of 32-wide windows, each window left to right. Up to 32, the
+    multiply fuses into the reduce and LLVM contracts it to a left-to-right
+    chain of FMAs: emulated in float64, where the float32 product is exact.
+    The same fixed order runs on CUDA (no reduction kernel is involved).
+    """
+    n = a.shape[-1]
+    if n <= _XLA_TREE_WINDOW:
+        acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+        for i in range(n):
+            acc = (a[..., i].double() * b[..., i].double()
+                   + acc.double()).float()
+        return acc
+    p = a * b
+    while n > _XLA_TREE_WINDOW:
+        padded = -(-n // _XLA_TREE_WINDOW) * _XLA_TREE_WINDOW
+        lo = (padded - n) // 2
+        p = torch.nn.functional.pad(p, (lo, padded - n - lo))
+        p = _sum_in_order(p.reshape(p.shape[:-1] + (-1, _XLA_TREE_WINDOW)))
+        n = padded // _XLA_TREE_WINDOW
+    return _sum_in_order(p)
+
+
+def autocorrelation(windowed: torch.Tensor, maxlag: int) -> torch.Tensor:
+    """autoc[..., j] = sum_t d[t] * d[t+j], j = 0..maxlag (lpc.c:63).
+
+    windowed: [..., T] float32 (already apodized). Accumulates in float32
+    like the reference's FLAC__real path, in XLA:CPU's order (see
+    _lag_product_sum).
+    """
+    T = windowed.shape[-1]
+    cols = [_lag_product_sum(windowed[..., : T - j], windowed[..., j:])
+            for j in range(maxlag + 1)]
+    return torch.stack(cols, dim=-1)
+
+
+def levinson(autoc: torch.Tensor, max_order: int
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Levinson-Durbin over all orders 1..max_order in float64 (lpc.c:112-154).
+
+    Returns (lp_coeffs [..., L, L] float32 — row o-1 holds the predictor
+    coefficients of order o; errors [..., L] float64; valid [..., L] bool —
+    False for orders after the error hit 0.0, lpc.c:150-153).
+    """
+    a = autoc.to(torch.float64)
+    batch = a.shape[:-1]
+    L = max_order
+    lpc = torch.zeros(batch + (L,), dtype=torch.float64, device=a.device)
+    err = a[..., 0]
+    rows, errs, valids = [], [], []
+    alive = torch.ones(batch, dtype=torch.bool, device=a.device)
+    for i in range(L):
+        r = -a[..., i + 1]
+        for j in range(i):
+            r = r - lpc[..., j] * a[..., i - j]
+        r = r / torch.where(err == 0.0, 1.0, err)  # guarded; masked by `alive`
+        new_lpc = lpc.clone()
+        new_lpc[..., i] = r
+        half = i >> 1
+        for j in range(half):
+            tmp = new_lpc[..., j].clone()
+            new_lpc[..., j] = new_lpc[..., j] + r * new_lpc[..., i - 1 - j]
+            new_lpc[..., i - 1 - j] = new_lpc[..., i - 1 - j] + r * tmp
+        if i & 1:
+            new_lpc[..., half] = new_lpc[..., half] + new_lpc[..., half] * r
+        new_err = err * (1.0 - r * r)
+        lpc = torch.where(alive[..., None], new_lpc, lpc)
+        err_out = torch.where(alive, new_err, err)
+        rows.append(-lpc)  # negate FIR coeff to get predictor coeff (lpc.c:147)
+        errs.append(err_out)
+        valids.append(alive)
+        err = err_out
+        alive = alive & (err != 0.0)
+    lp_coeffs = torch.stack(rows, dim=-2).to(torch.float32)
+    return lp_coeffs, torch.stack(errs, dim=-1), torch.stack(valids, dim=-1)
+
+
+def expected_bits_per_residual_sample(lpc_error: torch.Tensor,
+                                      total_samples: torch.Tensor | float
+                                      ) -> torch.Tensor:
+    """FLAC__lpc_compute_expected_bits_per_residual_sample (lpc.c:1325-1351),
+    float64."""
+    error_scale = 0.5 * (_LN2 * _LN2) / torch.as_tensor(
+        total_samples, dtype=torch.float64, device=lpc_error.device)
+    bps = 0.5 * torch.log(error_scale * lpc_error) / _LN2
+    # 1e32 as a float64 tensor: torch.where of two Python floats would round
+    # it to the default float32, where flac_tpu (x64) keeps float64
+    big = torch.full_like(bps, 1e32)
+    return torch.where(lpc_error > 0.0, torch.clamp(bps, min=0.0),
+                       torch.where(lpc_error < 0.0, big, 0.0))
+
+
+def compute_best_order(errors: torch.Tensor, valid: torch.Tensor,
+                       total_samples: int,
+                       overhead_bits_per_order: torch.Tensor) -> torch.Tensor:
+    """FLAC__lpc_compute_best_order (lpc.c:1353-1390): strict-< argmin of the
+    estimated subframe bits over orders 1..L; ties keep the lower order
+    (torch.argmin, like jnp.argmin, returns the first minimum).
+    Returns the best order in 1..L as int32."""
+    L = errors.shape[-1]
+    orders = torch.arange(1, L + 1, dtype=torch.float64, device=errors.device)
+    bits = (expected_bits_per_residual_sample(errors, float(total_samples))
+            * (total_samples - orders)
+            + orders * overhead_bits_per_order[..., None].to(torch.float64))
+    bits = torch.where(valid, bits, math.inf)
+    return (torch.argmin(bits, dim=-1) + 1).to(torch.int32)
+
+
+def quantize_coefficients(lp_coeff: torch.Tensor, order: torch.Tensor,
+                          precision: torch.Tensor, max_order: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FLAC__lpc_quantize_coefficients (lpc.c:156-263), batched.
+
+    lp_coeff [..., max_order] float32; order / precision [...] int32.
+    Returns (qlp [..., max_order] int32, shift [...] int32, ok [...] bool),
+    with the reference's error feedback, the shift clamp to [.., 15] and
+    the negative-shift fallback that reports shift 0.
+    """
+    c = lp_coeff.to(torch.float64)
+    dev = c.device
+    L = max_order
+    jrange = torch.arange(L, device=dev)
+    active = jrange < order[..., None]
+    p = precision - 1  # drop sign bit (lpc.c:166)
+    one = torch.ones((), dtype=p.dtype, device=dev)
+    qmax = (one << p) - 1
+    qmin = -(one << p)
+    cmax = torch.where(active, c.abs(), 0.0).amax(dim=-1)
+    ok_nonzero = cmax > 0.0  # all-zero coeffs: "constant-detect didn't work"
+    e = bitmath.frexp_exponent(torch.where(ok_nonzero, cmax, 1.0))
+    log2cmax = e - 1
+    shift = p - log2cmax - 1
+    max_shiftlimit = (1 << 4) - 1  # (1<<(QLP_SHIFT_LEN-1))-1 = 15
+    min_shiftlimit = -max_shiftlimit - 1
+    ok_shift = shift >= min_shiftlimit  # too-small shift: ret 1
+    shift = torch.clamp(shift, max=max_shiftlimit)
+    # 2^shift, exact also for negative shift, from int64 shifts like
+    # flac_tpu (lanes with |shift| > 62 are masked off by ok_shift / clamp)
+    shift_c = torch.clamp(shift, -62, 62).to(torch.int64)
+    one64 = torch.ones((), dtype=torch.int64, device=dev)
+    scale = (torch.where(shift_c >= 0, one64 << shift_c.clamp(min=0), 1)
+             .to(torch.float64)
+             / torch.where(shift_c < 0, one64 << (-shift_c).clamp(min=0), 1)
+             .to(torch.float64))
+    err = torch.zeros(c.shape[:-1], dtype=torch.float64, device=dev)
+    qmin_f, qmax_f = qmin.to(torch.float64), qmax.to(torch.float64)
+    qs = []
+    for j in range(L):
+        err_new = err + c[..., j] * scale
+        q = torch.where(err_new >= 0.0, torch.floor(err_new + 0.5),
+                        torch.ceil(err_new - 0.5))
+        q = torch.minimum(torch.maximum(q, qmin_f), qmax_f)
+        is_act = active[..., j]
+        qs.append(torch.where(is_act, q, 0.0).to(torch.int32))
+        err = torch.where(is_act, err_new - q, err)
+    qlp = torch.stack(qs, dim=-1)
+    shift_out = torch.clamp(shift, min=0)  # negative shift: decoder NOP -> 0
+    return qlp, shift_out.to(torch.int32), ok_nonzero & ok_shift
+
+
+def lpc_residual(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
+                 shift: torch.Tensor, max_order: int,
+                 narrow: bool = False) -> torch.Tensor:
+    """residual[t] = x[t] - (sum_{j=1..order} qlp[j-1] * x[t-j] >> shift).
+
+    x: [..., T] int32; qlp: [..., max_order]; order/shift: [...]. Entries
+    t < order are zeroed. narrow=True keeps the accumulator in int32, exact
+    whenever bps + qlp precision + ilog2(order) <= 32 (stream_encoder.c:3592;
+    the caller checks this statically); otherwise int64.
+    """
+    T = x.shape[-1]
+    dt = torch.int32 if narrow else torch.int64
+    xw = x.to(dt)
+    acc = torch.zeros_like(xw)
+    for j in range(1, max_order + 1):
+        coef = qlp[..., j - 1].to(dt)
+        lag = torch.roll(xw, j, dims=-1)  # x[t-j]; wrapped t<order masked below
+        acc = acc + torch.where((j <= order)[..., None], coef[..., None] * lag, 0)
+    pred = acc >> shift[..., None].to(dt)
+    t = torch.arange(T, device=x.device)
+    res = torch.where(t >= order[..., None], xw - pred, 0)
+    return res.to(torch.int32)

@@ -1,0 +1,290 @@
+"""Host-side stream encoder — the port of flac_tpu.encode.encoder.
+
+Stream header emission ("fLaC" + STREAMINFO + VORBIS_COMMENT + user
+metadata, init_stream_internal_ stream_encoder.c:1029-1128), frame batching
+onto the frame encoder, MD5 accumulation, STREAMINFO/seektable statistics
+and the seek-back rewrite at finish (update_metadata_ :2516).
+
+Frames are encoded in batches by encode.frame_encoder on the chosen device
+(None: CUDA); the packed words come back to the host and are written as
+they are (flac_tpu's non-dense emit path).
+"""
+
+from __future__ import annotations
+
+import io
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+import torch
+
+from flac_tpu_torch import constants as C
+from flac_tpu_torch.device import resolve_device
+from flac_tpu_torch.encode.frame_encoder import EncoderConfig, build_frame_encoder
+from flac_tpu_torch.md5 import MD5Context
+from flac_tpu_torch.metadata import (
+    MetadataBlock,
+    SeekPoint,
+    SeekTable,
+    StreamInfo,
+    VorbisComment,
+    serialize_metadata,
+)
+from flac_tpu_torch.version import VENDOR_STRING
+
+
+def _refuse_verify(verify: bool) -> None:
+    if verify:
+        raise NotImplementedError(
+            "verify=True needs the frame decoder, which is not ported to "
+            "flac_tpu_torch yet (ROADMAP queue 1 item 6)")
+
+
+@dataclass
+class EncodeStats:
+    frames: int = 0
+    samples: int = 0
+    bytes_written: int = 0
+    min_framesize: int = (1 << 31) - 1
+    max_framesize: int = 0
+    assignments: list = field(default_factory=list)
+    batches: int = 0  # frame-encoder calls, the final partial frame included
+
+
+class StreamEncoder:
+    """Streaming FLAC encoder with the reference's process()/finish() shape.
+
+    Usage:
+        enc = StreamEncoder(config, out_stream, metadata=[...])
+        enc.process(samples)   # [n, channels] int32, any chunking
+        enc.finish()
+    """
+
+    def __init__(self, config: EncoderConfig, out, metadata: list[MetadataBlock] | None = None,
+                 batch_frames: int = 64, total_samples_estimate: int = 0,
+                 do_md5: bool = True, seekpoints: list[int] | None = None,
+                 verify: bool = False, device: str | torch.device | None = None):
+        _refuse_verify(verify)
+        self.cfg = config.resolve()
+        self.device = resolve_device(device)
+        self.out = out
+        self.batch_frames = batch_frames
+        self.do_md5 = do_md5
+        self._md5 = MD5Context()
+        self._buf = np.zeros((0, self.cfg.channels), np.int32)
+        self._frame_no = 0
+        self._encode = build_frame_encoder(self.cfg, device=self.device)
+        self._finish_encoders: dict[int, object] = {}
+        self.stats = EncodeStats()
+        self._finished = False
+
+        # loose mid-side reuses assignment state across a cycle; batches must
+        # start at cycle boundaries (frame_encoder handles in-batch reuse)
+        if self.cfg.loose_mid_side:
+            q = self.cfg.loose_mid_side_frames
+            self.batch_frames = max(q, (batch_frames // q) * q)
+
+        # --- stream header -------------------------------------------------
+        self._streaminfo = StreamInfo(
+            min_blocksize=self.cfg.blocksize, max_blocksize=self.cfg.blocksize,
+            min_framesize=0, max_framesize=0, sample_rate=self.cfg.sample_rate,
+            channels=self.cfg.channels, bits_per_sample=self.cfg.bits_per_sample,
+            total_samples=total_samples_estimate, md5sum=b"\x00" * 16)
+        blocks: list[MetadataBlock] = [self._streaminfo]
+        self._seektable: SeekTable | None = None
+        user_blocks = list(metadata or [])
+        if seekpoints:
+            self._seektable = SeekTable(points=[
+                SeekPoint(sp, 0, 0) if sp != SeekPoint.PLACEHOLDER
+                else SeekPoint(SeekPoint.PLACEHOLDER, 0, 0) for sp in seekpoints])
+            blocks.append(self._seektable)
+        for b in user_blocks:
+            if isinstance(b, SeekTable) and self._seektable is None:
+                self._seektable = b
+            if isinstance(b, VorbisComment):
+                # the stream encoder stamps its own vendor string on every
+                # VORBIS_COMMENT it writes (stream_encoder_framing.c:53-68)
+                b = replace(b, vendor_string=VENDOR_STRING)
+            blocks.append(b)
+        # libFLAC always emits a VORBIS_COMMENT with its vendor string when the
+        # caller didn't supply one (init_stream_internal_, stream_encoder.c:1068)
+        if not any(isinstance(b, VorbisComment) for b in blocks):
+            blocks.insert(1, VorbisComment(vendor_string=VENDOR_STRING))
+        self._blocks = blocks
+        out.write(C.STREAM_SYNC_STRING)
+        self._metadata_offset = 4
+        header = serialize_metadata(blocks)
+        out.write(header)
+        self._audio_offset = 4 + len(header)
+        self._pending_seekpoints = (
+            sorted(p.sample_number for p in self._seektable.points
+                   if not p.is_placeholder) if self._seektable else [])
+        self._seek_fill: dict[int, tuple[int, int]] = {}
+
+    # -- processing ---------------------------------------------------------
+
+    def process(self, samples: np.ndarray) -> None:
+        assert not self._finished
+        if samples.ndim == 1:
+            samples = samples[:, None]
+        assert samples.shape[1] == self.cfg.channels
+        self._buf = np.concatenate([self._buf, samples.astype(np.int32)], axis=0)
+        bs = self.cfg.blocksize
+        # keep one sample of lookahead so the final (possibly partial) block is
+        # always flushed by finish(), mirroring the reference's OVERREAD_
+        # (stream_encoder.c:515)
+        while self._buf.shape[0] > bs * self.batch_frames:
+            chunk = self._buf[: bs * self.batch_frames]
+            self._buf = self._buf[bs * self.batch_frames:]
+            self._encode_full_frames(chunk)
+        nfull = self._buf.shape[0] // bs
+        if self._buf.shape[0] % bs == 0 and nfull > 0:
+            nfull -= 1  # retain the last full block until finish()
+        if nfull > 0:
+            chunk = self._buf[: bs * nfull]
+            self._buf = self._buf[bs * nfull:]
+            self._encode_full_frames(chunk)
+
+    def _encode_full_frames(self, chunk: np.ndarray) -> None:
+        bs = self.cfg.blocksize
+        nframes = chunk.shape[0] // bs
+        frames = chunk.reshape(nframes, bs, self.cfg.channels)
+        if self.do_md5:
+            self._md5.accumulate(chunk, self.cfg.bits_per_sample)
+        B = self.batch_frames
+        for start in range(0, nframes, B):
+            batch = frames[start : start + B]
+            nb = batch.shape[0]
+            if nb < B:  # pad to the static batch size; padded outputs dropped
+                batch = np.concatenate(
+                    [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
+            fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
+            words, total_bits, _info = self._encode(batch, fnos)
+            self.stats.batches += 1
+            self._emit(words.cpu().numpy(), total_bits.cpu().numpy(), nb)
+            self._frame_no += nb
+            self.stats.samples += nb * bs
+
+    def _emit(self, words: np.ndarray, total_bits: np.ndarray,
+              nframes: int) -> None:
+        byte_view = words.astype(">u4").view(np.uint8).reshape(words.shape[0], -1)
+        lengths = (total_bits + 7) // 8
+        bs = self.cfg.blocksize
+        for i in range(nframes):
+            n = int(lengths[i])
+            assert total_bits[i] % 8 == 0
+            assert n <= byte_view.shape[1], "frame overflowed static pack buffer"
+            frame_index = self._frame_no + i
+            sample_pos = frame_index * bs
+            # seektable fill-in as frames stream out (write_frame_,
+            # stream_encoder.c:2453-2470): claim pending points <= sample_pos
+            while self._pending_seekpoints and self._pending_seekpoints[0] < sample_pos + bs:
+                target = self._pending_seekpoints[0]
+                if target < sample_pos:
+                    self._pending_seekpoints.pop(0)
+                    continue
+                if target < sample_pos + bs:
+                    self._seek_fill[target] = (sample_pos,
+                                               self.stats.bytes_written)
+                    self._pending_seekpoints.pop(0)
+            self.out.write(byte_view[i, :n].tobytes())
+            self.stats.bytes_written += n
+            self.stats.frames += 1
+            self.stats.min_framesize = min(self.stats.min_framesize, n)
+            self.stats.max_framesize = max(self.stats.max_framesize, n)
+
+    # -- finish -------------------------------------------------------------
+
+    def finish(self) -> StreamInfo:
+        assert not self._finished
+        bs = self.cfg.blocksize
+        # flush whole frames first, then the final partial frame
+        nfull = self._buf.shape[0] // bs
+        if nfull:
+            chunk = self._buf[: bs * nfull]
+            self._buf = self._buf[bs * nfull:]
+            self._encode_full_frames(chunk)
+        rem = self._buf.shape[0]
+        if rem:
+            tail = self._buf
+            self._buf = self._buf[:0]
+            if self.do_md5:
+                self._md5.accumulate(tail, self.cfg.bits_per_sample)
+            enc = self._finish_encoders.get(rem)
+            if enc is None:
+                enc = build_frame_encoder(self.cfg, blocksize=rem,
+                                          device=self.device)
+                self._finish_encoders[rem] = enc
+            words, total_bits, _info = enc(
+                tail[None, :, :], np.asarray([self._frame_no], np.int64))
+            self.stats.batches += 1
+            self._emit_partial(words[0].cpu().numpy(), int(total_bits[0]))
+            self._frame_no += 1
+            self.stats.samples += rem
+        self._finished = True
+        # rewrite STREAMINFO (+ seektable) with final statistics
+        si = self._streaminfo
+        si.min_framesize = 0 if self.stats.frames == 0 else self.stats.min_framesize
+        si.max_framesize = self.stats.max_framesize
+        si.total_samples = self.stats.samples
+        si.md5sum = self._md5.digest() if self.do_md5 else b"\x00" * 16
+        if self._seektable:
+            for p in self._seektable.points:
+                if p.is_placeholder:
+                    continue
+                fill = self._seek_fill.get(p.sample_number)
+                if fill is None:
+                    # point beyond the stream: becomes a placeholder
+                    p.sample_number = SeekPoint.PLACEHOLDER
+                    p.stream_offset = 0
+                    p.frame_samples = 0
+                else:
+                    p.sample_number, p.stream_offset = fill[0], fill[1]
+                    p.frame_samples = bs
+        if self.out.seekable():
+            self.out.seek(self._metadata_offset)
+            self.out.write(serialize_metadata(self._blocks))
+            self.out.seek(0, io.SEEK_END)
+        return si
+
+    def _emit_partial(self, words: np.ndarray, total_bits: int) -> None:
+        data = words.astype(">u4").view(np.uint8).tobytes()[: total_bits // 8]
+        self.out.write(data)
+        n = len(data)
+        self.stats.bytes_written += n
+        self.stats.frames += 1
+        self.stats.min_framesize = min(self.stats.min_framesize, n)
+        self.stats.max_framesize = max(self.stats.max_framesize, n)
+
+
+def encode_file(in_samples: np.ndarray, sample_rate: int, bits_per_sample: int,
+                out_path: str, level: int = 5, blocksize: int | None = None,
+                metadata: list[MetadataBlock] | None = None,
+                seekpoints: list[int] | None = None, batch_frames: int = 64,
+                verify: bool = False, do_md5: bool = True,
+                device: str | torch.device | None = None,
+                **overrides) -> EncodeStats:
+    """Encode an int32 [n, channels] PCM array to a FLAC file on `device`
+    (None: CUDA; raises without a GPU unless device="cpu").
+
+    `in_samples` may also be an array-like that materializes on slicing: the
+    input is fed to the stream encoder in bounded chunks."""
+    _refuse_verify(verify)
+    device = resolve_device(device)  # raise before the output file is opened
+    if in_samples.ndim == 1:
+        in_samples = in_samples[:, None]
+    cfg = EncoderConfig.from_level(level, in_samples.shape[1], bits_per_sample,
+                                   sample_rate, blocksize=blocksize, **overrides)
+    n = in_samples.shape[0]
+    with open(out_path, "wb") as f:
+        enc = StreamEncoder(cfg, f, metadata=metadata, seekpoints=seekpoints,
+                            batch_frames=batch_frames,
+                            total_samples_estimate=n,
+                            verify=verify, do_md5=do_md5, device=device)
+        # feed in encoder-batch multiples: ndarray inputs pass through as
+        # views; lazy inputs convert one chunk at a time
+        step = max(enc.cfg.blocksize * enc.batch_frames, 1 << 20)
+        for s in range(0, n, step):
+            enc.process(np.asarray(in_samples[s : s + step]))
+        enc.finish()
+    return enc.stats

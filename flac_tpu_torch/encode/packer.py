@@ -1,0 +1,215 @@
+"""Parallel bitstream packing — the port of flac_tpu.encode.packer.
+
+Every frame is a flat list of (value, nbits) fields; a prefix sum of nbits
+gives each field's end bit; each field lands in at most 2 consecutive 32-bit
+words, and the contributions are bit-disjoint. CRC-8 comes from the fields
+and CRC-16 from the packed words as GF(2) reductions (see flac_tpu.crc).
+
+The word fill has two versions behind `pack_fields_kernel`: the CUDA kernel
+(kernels.pack_words, csrc/pack_words.cu) for CUDA tensors, and the plain
+PyTorch `pack_fields` for CPU tensors. Field values MUST be pre-masked to
+their nbits.
+
+torch has no uint32 shifts and no XOR reduction, so the uint32 arithmetic
+of flac_tpu runs here in int64 with explicit 32-bit masks, and XOR sums go
+through a pairwise tree (exact in any order).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from flac_tpu_torch import crc as crc_mod
+from flac_tpu_torch.dsp.bitmath import tree_reduce
+from flac_tpu_torch.kernels import pack_words as _pack_words
+
+# Max significant bits in any field value: a RICE2 codeword has k+1 <= 31
+# significant bits, a 32-bit verbatim/warmup sample 32, the side channel 33,
+# the combined first header field 32.
+MAX_SIG_BITS = 33
+
+_MASK32 = 0xFFFFFFFF
+
+
+def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as int32 bit patterns (uint32 -> int32)."""
+    return torch.where(x >= 2 ** 31, x - 2 ** 32, x).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def xpow_table_np(maxbits: int, poly: int, width: int) -> np.ndarray:
+    """Entry d = x^(d + width) mod G: CRC contribution of a set bit at
+    bit-distance d from the end of the message."""
+    return crc_mod.x_pow_mod_table(maxbits + width + 1, poly, width)[width:].astype(np.int32)
+
+
+def crc_reduce(values: torch.Tensor, ends: torch.Tensor, msg_end: torch.Tensor,
+               include: torch.Tensor, table: torch.Tensor, poly: int,
+               width: int) -> torch.Tensor:
+    """CRC of the concatenated fields [0, msg_end) as a pure XOR reduction.
+
+    values [..., F] int64; ends [..., F] int32 field end bits; msg_end [...];
+    include [..., F] bool. Returns [...] int64.
+    """
+    base = (msg_end[..., None] - ends).to(torch.int32)
+    base = torch.clamp(base, 0, table.shape[0] - 1)
+    tvals = table[base.long()].to(torch.int64)
+    v = torch.where(include, values, 0)
+    prod = torch.zeros_like(v)
+    for b in range(width):  # carryless multiply by the table entry
+        prod = prod ^ torch.where(((tvals >> b) & 1) == 1, v << b, 0)
+    g_full = (1 << width) | poly
+    for bit in range(MAX_SIG_BITS + width - 1, width - 1, -1):  # mod G
+        prod = prod ^ (((prod >> bit) & 1) * (g_full << (bit - width)))
+    return tree_reduce(prod, torch.bitwise_xor)
+
+
+def _field_words(nbits: torch.Tensor):
+    """ends (int32 inclusive prefix sum), total_bits, we (word of each
+    field's last bit) and r (its bits in that word, in [1, 32])."""
+    ends = torch.cumsum(nbits, dim=-1, dtype=torch.int32)
+    we = (ends - 1) >> 5
+    return ends, ends[..., -1], we, ends - (we << 5)
+
+
+def pack_fields(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch word fill: pack fields into big-endian 32-bit words.
+
+    values [B, F] int64 (masked, <= MAX_SIG_BITS significant bits); nbits
+    [B, F] int32. Returns (words [B, maxwords] int32 — serialize big-endian
+    for the byte stream, total_bits [B] int32).
+
+    Mirrors flac_tpu's segmented reduction without scatter: `we` is sorted,
+    so word w's sum is a difference of running sums at the segment bounds,
+    which torch.searchsorted finds (in place of flac_tpu's unrolled binary
+    search). c1 contributions belong to word we-1.
+    """
+    ends, total_bits, we, r = _field_words(nbits)
+    has = nbits > 0
+    v = torch.where(has, values, 0)
+    c0 = torch.where(has, (v << (32 - r)) & _MASK32, 0)
+    # v >> r < 2^32 (<= 33 significant bits, r >= 1)
+    c1 = (v >> r) & _MASK32
+    B = values.shape[0]
+    zero = torch.zeros((B, 1), dtype=torch.int64, device=values.device)
+    S0p = torch.cat([zero, torch.cumsum(c0, dim=-1)], dim=-1)
+    S1p = torch.cat([zero, torch.cumsum(c1, dim=-1)], dim=-1)
+    w_probe = torch.arange(-1, maxwords + 1, dtype=torch.int32,
+                           device=values.device).expand(B, maxwords + 2)
+    # first index with we > w == count of fields with we <= w
+    pos = torch.searchsorted(we.contiguous(), w_probe.contiguous(), right=True)
+    t0 = torch.gather(S0p, 1, pos)
+    t1 = torch.gather(S1p, 1, pos)
+    words = (t0[:, 1:maxwords + 1] - t0[:, :maxwords]
+             + t1[:, 2:maxwords + 2] - t1[:, 1:maxwords + 1])
+    return to_int32_bits(words), total_bits
+
+
+def pack_fields_kernel(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack_fields with the word fill done by the hand-written CUDA kernel —
+    the counterpart of flac_tpu's pack_fields_pallas. CUDA tensors launch
+    the kernel (a failure raises); CPU tensors take the plain version."""
+    if values.device.type == "cpu":
+        return pack_fields(values, nbits, maxwords)
+    ends, total_bits, _, _ = _field_words(nbits)
+    words = _pack_words.pack_words(values.contiguous(), ends, maxwords)
+    return words, total_bits
+
+
+def stream_words_to_bytes(host_words: np.ndarray, total: int) -> np.ndarray:
+    """Host-side serializer: big-endian word bytes, trimmed to `total`."""
+    be = np.ascontiguousarray(host_words, dtype=np.uint32).astype(">u4")
+    return np.frombuffer(be.tobytes(), np.uint8)[:int(total)]
+
+
+# ---------------------------------------------------------------------------
+# Word-level CRC-16: reduce each 32-bit word mod G, carryless-multiply by a
+# static per-position x^(32j+16) table, XOR-reduce, then multiply by
+# x^(-8*pad) to cancel the zero padding. The packed words must hold ZEROS in
+# the final 16-bit CRC slot; the CRC is inserted afterwards.
+# ---------------------------------------------------------------------------
+
+def _clmul_mod(a: int, b: int, poly: int, width: int) -> int:
+    p = 0
+    for i in range(width):
+        if (b >> i) & 1:
+            p ^= a << i
+    g = (1 << width) | poly
+    for bit in range(2 * width - 2, width - 1, -1):
+        if (p >> bit) & 1:
+            p ^= g << (bit - width)
+    return p
+
+
+@functools.lru_cache(maxsize=8)
+def crc16_word_tables(maxwords: int) -> tuple[np.ndarray, np.ndarray]:
+    """(tbl [maxwords] — x^(32*(maxwords-1-i)+16) mod G, the multiplier of
+    word i in the zero-padded buffer; inv [4*maxwords+3] — x^(-8k) mod G,
+    the pad fixup)."""
+    poly, width = crc_mod.CRC16_POLY, 16
+    xp = crc_mod.x_pow_mod_table(32 * maxwords + 17, poly, width)
+    idx = 32 * (maxwords - 1 - np.arange(maxwords)) + 16
+    tbl = xp[idx].astype(np.int32)
+    # x^-1 mod G: x * u = G + 1 => u = (G+1)/x
+    g_full = (1 << width) | poly
+    u = (g_full ^ 1) >> 1
+    u8 = u
+    for _ in range(3):  # u^2, u^4, u^8
+        u8 = _clmul_mod(u8, u8, poly, width)
+    inv = np.zeros(4 * maxwords + 3, np.int32)
+    cur = 1
+    for k in range(len(inv)):
+        inv[k] = cur
+        cur = _clmul_mod(cur, u8, poly, width)
+    return tbl, inv
+
+
+def _reduce16(v: torch.Tensor, top: int) -> torch.Tensor:
+    """v mod G for v < 2^(top+1)."""
+    g16 = (1 << 16) | crc_mod.CRC16_POLY
+    for bit in range(top, 15, -1):
+        v = v ^ (((v >> bit) & 1) * (g16 << (bit - 16)))
+    return v
+
+
+def _clmul16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    p = torch.zeros_like(a)
+    for i in range(16):
+        p = p ^ torch.where(((b >> i) & 1) == 1, a << i, 0)
+    return p
+
+
+def crc16_from_words(words: torch.Tensor, total_bits: torch.Tensor,
+                     tbl: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """CRC-16 of each frame's bytes [0, nbytes-2) from its packed words
+    (zeros in the final 16-bit slot). Returns [B] int32."""
+    W = words.shape[1]
+    r = _reduce16(words.to(torch.int64) & _MASK32, 31)  # word mod G: <= 16 bits
+    acc = tree_reduce(_clmul16(r, tbl.to(torch.int64)[None, :]), torch.bitwise_xor)
+    acc = _reduce16(acc, 30)
+    # pad bytes after the CRC-16 message = buffer(4W) - nbytes + 2
+    nbytes = torch.div(total_bits.to(torch.int32) + 7, 8, rounding_mode="floor")
+    fix = inv.to(torch.int64)[(4 * W - nbytes + 2).long()]
+    return _reduce16(_clmul16(acc, fix), 30).to(torch.int32)
+
+
+def insert_crc16(words: torch.Tensor, total_bits: torch.Tensor,
+                 crc: torch.Tensor) -> torch.Tensor:
+    """OR each frame's CRC-16 into its (zero) last 16 bits; returns a new
+    tensor."""
+    B = words.shape[0]
+    end = total_bits.to(torch.int32)
+    we = ((end - 1) >> 5).long()
+    rr = (end - (we.to(torch.int32) << 5)).to(torch.int64)  # in [8, 32]
+    c = crc.to(torch.int64) & _MASK32
+    wu = words.to(torch.int64) & _MASK32
+    rows = torch.arange(B, device=words.device)
+    wu[rows, we] += (c << (32 - rr)) & _MASK32
+    # the CRC straddles two words when rr < 16
+    wu[rows, torch.clamp(we - 1, min=0)] += torch.where(rr < 16, c >> rr, 0)
+    return to_int32_bits(wu & _MASK32)

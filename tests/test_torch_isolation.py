@@ -1,0 +1,81 @@
+"""The port's boundaries: flac_tpu_torch imports neither JAX nor flac_tpu,
+its entry points default to CUDA and raise without a GPU, and a CUDA tensor
+never reaches the plain word fill."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from flac_tpu_torch.device import resolve_device
+from flac_tpu_torch.encode import encoder as t_encoder
+from flac_tpu_torch.encode import frame_encoder as t_fe
+from flac_tpu_torch.encode import packer as t_packer
+from flac_tpu_torch.kernels import pack_words
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = """
+import importlib, pathlib, sys
+import flac_tpu_torch
+root = pathlib.Path(flac_tpu_torch.__path__[0])
+names = sorted(".".join(("flac_tpu_torch",) + p.relative_to(root).with_suffix("").parts)
+               .removesuffix(".__init__") for p in root.rglob("*.py"))
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flac_tpu") or m.startswith(("jax.", "flac_tpu.")))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_flac_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    n_modules = int(r.stdout.split()[0])
+    assert n_modules >= 20  # every module of the slice was imported
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_gpu(no_cuda, tmp_path):
+    cfg = t_fe.EncoderConfig.from_level(5, 2, 16, 44100)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_fe.build_frame_encoder(cfg)
+    with open(tmp_path / "s.flac", "wb") as f, \
+            pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_encoder.StreamEncoder(cfg, f)
+    out = tmp_path / "e.flac"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_encoder.encode_file(np.zeros((5000, 2), np.int32), 44100, 16, str(out))
+    assert not out.exists()
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():
+    rng = np.random.default_rng(3)
+    nbits = rng.integers(0, 34, size=(3, 50)).astype(np.int32)
+    values = rng.integers(0, 1 << 62, size=(3, 50)) & ((1 << nbits.astype(np.int64)) - 1)
+    v, n = torch.as_tensor(values), torch.as_tensor(nbits)
+    before = pack_words.launches
+    got = t_packer.pack_fields_kernel(v, n, 60)
+    ref = t_packer.pack_fields(v, n, 60)
+    assert pack_words.launches == before
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    # the kernel launcher refuses CPU tensors instead of computing anything
+    with pytest.raises(ValueError, match="CUDA"):
+        pack_words.pack_words(v, torch.cumsum(n, 1, dtype=torch.int32), 60)
