@@ -5,32 +5,57 @@
 
 Phases, each printing one JSON line (any failure raises and exits nonzero):
 
-1. env     — requires CUDA; prints the card's name and power limit as
-             nvidia-smi gives them, and builds the CUDA kernels from csrc/.
-2. kernels — holds the word-fill kernel against its plain PyTorch version
-             on the card, bit for bit: the cases of
-             tests/test_packer_pallas.py, regenerated from their seeds, and
-             the real fields of one level-5 batch (B=64, T=4096, stereo)
-             and of the stream's final partial block.
-             Then times kernel, plain version and one index_add_ call (the
-             library yardstick, which the port never calls) at B=512,
-             T=4096, with CUDA events after warm-up.
-3. encode  — the main path: encode_file(level=5) of 60 s of 44.1 kHz
-             stereo 16-bit PCM made from a seed, on the card; the kernel's
-             launch count must equal the number of frame batches (the final
-             partial block included). The file is decoded by the port's
-             host decoder (CRC-8, CRC-16 and MD5 checked) and must give the
-             PCM back. The first batch is also encoded on the CPU, and the
-             frames that differ are counted (float sums may round apart).
-             One 64-frame batch is timed by stage on the host clock (the
-             two device stages; the host's MD5, copy back and emit) and
-             once under torch.profiler (device busy time, device events);
-             the idle share divides the busy time by the unprofiled wall.
-             The whole encode runs once more under torch.profiler (device
-             only); its busy time over the first run's wall gives the
-             run's idle share.
-4. the `kernels` line, one entry per ported kernel, with its launches on
-   the main path, error against the plain version, and times.
+1. env            — requires CUDA; prints the card's name and power limit as
+                    nvidia-smi gives them, and builds every CUDA kernel from
+                    csrc/ (one nvcc per source, all started together).
+2. kernels        — holds the banded word-fill kernel against its plain
+                    PyTorch version on the card, bit for bit: the cases of
+                    tests/test_packer_pallas.py, regenerated from their
+                    seeds, and the real fields of one level-5 batch (B=64,
+                    T=4096, stereo) and of the stream's final partial block.
+                    Then times kernel, plain version and one index_add_ call
+                    (the library yardstick, which the port never calls) at
+                    B=512, T=4096, with CUDA events after warm-up.
+3. kernels_merged — the same for the merged-slot fill (pack_words_multi):
+                    the merged cases of tests/test_packer_pallas.py (the
+                    all-spill case included), a real level-5 batch at B=64
+                    and the partial block; times at B=512.
+4. encode         — the main path: encode_file(level=5) of 60 s of 44.1 kHz
+                    stereo 16-bit PCM made from a seed, on the card; the
+                    kernel's launch count must equal the number of frame
+                    batches (the final partial block included). The file is
+                    decoded by the port's host decoder (CRC-8, CRC-16 and MD5
+                    checked) and must give the PCM back. The first batch is
+                    also encoded on the CPU, and the frames that differ are
+                    counted (float sums may round apart). One 64-frame batch
+                    is timed by stage on the host clock (the two device
+                    stages; the host's MD5, copy back and emit) and once under
+                    torch.profiler (device busy time, device events); the idle
+                    share divides the busy time by the unprofiled wall. The
+                    whole encode runs once more under torch.profiler (device
+                    only); its busy time over the first run's wall gives the
+                    run's idle share.
+5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s under
+                    FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
+                    pack_words_multi must launch 3 times a batch, and the
+                    verifier must decode every batch of full frames through
+                    the decode kernels without a VerifyError.
+6. kernels_decode — holds the residual scan and the restore kernels against
+                    their plain versions, bit for bit (res, end positions and
+                    overflow flags; samples), on the real subframes of the
+                    first 512 frames of phase 4's stream and on three bit
+                    strings at the scan's guards (a Rice fold that trips, one
+                    that decodes exactly, a unary run of 60 zeros); then times
+                    kernel and plain version at B=512, T=4096.
+7. decode         — decode_bytes_device of phase 4's stream on the card: the
+                    exact input, MD5 checked, on path "device", with only the
+                    final partial frame on the host and both decode kernels
+                    launched batches x channels times; iter_blocks gives the
+                    same PCM. One 512-frame batch is timed by stage, and the
+                    whole decode runs again under torch.profiler for its
+                    device idle share.
+8. the `kernels` line, one entry per ported kernel, with its launches on its
+   path, error against the plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
 """
@@ -52,7 +77,13 @@ SAMPLE_RATE = 44100
 SECONDS = 60
 BLOCKSIZE = 4096
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate (NVIDIA data sheet)
+# int32 multiply-adds a second on an H100 SXM: 64 int32 lanes per SM, half
+# the float32 lanes behind the data sheet's 67 TFLOP/s, where an FMA counts
+# as two flops. An int64 multiply-add is counted as one of them (a floor).
+INT32_MACS_PER_S = 67e12 / 4
 MASK32 = 0xFFFFFFFF
+DECODE_B = 512              # the stream decoder's batch for long streams
+DECODE_MAXORD = 32          # the stream decoder's default max_lpc_order
 
 
 def emit(obj: dict) -> None:
@@ -107,6 +138,25 @@ def packer_cases():
            np.full((8, 64), 33, np.int32), 70)
 
 
+def fold_guard_words(n: int = 8) -> dict:
+    """RICE2 partitions of n samples with k=26: the two bit strings of
+    tests/test_device_decoder.py::TestNarrowScan.test_fold_guard (q=47 trips
+    the fold guard; q=15 decodes exactly) and a unary run of 60 zeros.
+    name -> words (int32, zero-padded)."""
+    k26 = format(26, "05b")
+    tail = ("1" + "0" * 26) * (n - 1)
+    lsb = format(0x155AA55 & ((1 << 26) - 1), "026b")
+    out = {}
+    for name, bits in (("fold_trips", k26 + "0" * 47 + "1" + lsb + tail),
+                       ("fold_exact", k26 + "0" * 15 + "1" + format(123, "026b") + tail),
+                       ("unary_60", k26 + "0" * 60 + "1" + tail)):
+        bits += "0" * ((-len(bits)) % 32)
+        w = np.array([int(bits[i:i + 32], 2) for i in range(0, len(bits), 32)],
+                     dtype=np.uint64).astype(np.uint32).view(np.int32)
+        out[name] = np.concatenate([w, np.zeros(16, np.int32)])
+    return out
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean CUDA-event time of one call, after warm-up."""
     for _ in range(warmup):
@@ -136,6 +186,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     from flac_tpu_torch import _native
+    from flac_tpu_torch.decode import frame_decoder as fd
+    from flac_tpu_torch.decode import stream as st
     from flac_tpu_torch.decode.host_decoder import decode_bytes
     from flac_tpu_torch.encode import packer
     from flac_tpu_torch.encode.encoder import StreamEncoder, encode_file
@@ -144,10 +196,14 @@ def main() -> None:
         max_frame_bytes)
     from flac_tpu_torch.kernels import _build
     from flac_tpu_torch.kernels import pack_words as pw
+    from flac_tpu_torch.kernels import residual_scan as rs
+    from flac_tpu_torch.kernels import restore_scan as rr
     from flac_tpu_torch.md5 import MD5Context
+    from flac_tpu_torch.metadata import parse_metadata
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    os.environ["FLAC_TPU_PACKER"] = "pallas"  # the banded fill, unless a phase says
 
     # --- 1. env -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -156,13 +212,14 @@ def main() -> None:
     print(smi, flush=True)
     card = f"{kind}, {smi.splitlines()[0].split(',')[-1].strip()}"
     t0 = time.perf_counter()
-    _build.build("pack_words")
+    _build.build_all()
     build_s = time.perf_counter() - t0
     emit({"phase": "env", "card": card, "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "native_runtime": _native.available,
           "build_s": build_s,
-          "ptxas": _build.build_log.get("pack_words", {}).get("ptxas", "cached")})
+          "nvcc_s": {k: v["seconds"] for k, v in _build.build_log.items()},
+          "ptxas": {k: v["ptxas"] for k, v in _build.build_log.items()}})
 
     # --- 2. kernel against plain version ------------------------------------
     def u32(t):
@@ -236,7 +293,69 @@ def main() -> None:
           "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
           "bound_ms": bound_ms, "bytes": bytes_moved})
 
-    # --- 3. main path: encode_file on the card ------------------------------
+    # --- 3. merged-slot fill against its plain version ------------------------
+    def check_multi(name, values, nbits, maxwords):
+        v = torch.as_tensor(values, dtype=torch.int64, device=dev)
+        n = torch.as_tensor(nbits, dtype=torch.int32, device=dev)
+        wk, tk = packer.pack_fields_merged_kernel(v, n, maxwords)
+        wp, tp = packer.pack_fields_merged(v, n, maxwords)
+        torch.cuda.synchronize()
+        err = int((u32(wk) - u32(wp)).abs().max())
+        if err or not torch.equal(tk, tp):
+            raise AssertionError(f"merged fill disagrees on {name}: max err {err}")
+        return {"case": name, "shape": list(v.shape), "maxwords": maxwords,
+                "max_abs_err": err}
+
+    mcases = [check_multi(*c) for c in packer_cases()]
+    v64, n64, _ = fields_fn(frames[:64], np.arange(64))
+    mcases.append(check_multi("level5_batch_64x4096", v64, n64, maxwords))
+    vt, nt, _ = tail_fn(pcm[None, -rem:], np.asarray([frames.shape[0]]))
+    mcases.append(check_multi(f"level5_partial_1x{rem}", vt, nt,
+                              max_frame_bytes(cfg, rem) // 4))
+    del v64, n64, vt, nt
+    values, nbits, _ = fields_fn(frames[:B], np.arange(B))
+    mcases.append(check_multi(f"level5_batch_{B}x{BLOCKSIZE}", values, nbits, maxwords))
+    arrays, _ = packer.merged_slots(values, nbits)
+    slots = [(v.contiguous(), e.to(torch.int32).contiguous()) for v, e in arrays]
+
+    def multi_kernel():
+        words = torch.zeros((B, maxwords), dtype=torch.int32, device=dev)
+        for v, e in slots:
+            pw.pack_words_multi(v, e, words)
+        return words
+
+    multi_ms = time_ms(multi_kernel)
+    multi_plain_ms = time_ms(lambda: packer.merged_fill(arrays, maxwords))
+    # library yardstick: one index_add_ of all precomputed contributions
+    idx, src = [], []
+    for v, e in arrays:
+        cs, mwe = packer.contribs3(v, e)
+        for j, c in enumerate(cs):
+            w = mwe - j
+            idx.append(torch.where((w >= 0) & (w < maxwords), rowbase + w, dummy).flatten())
+            src.append(c.flatten())
+    idx, src = torch.cat(idx), torch.cat(src)
+
+    def multi_library():
+        return torch.zeros(dummy + 1, dtype=torch.int64, device=dev).index_add_(0, idx, src)
+
+    if not torch.equal(multi_library()[:dummy].reshape(B, maxwords),
+                       u32(multi_kernel())):
+        raise AssertionError("index_add_ yardstick disagrees with the merged kernel")
+    multi_library_ms = time_ms(multi_library)
+    # each slot's value (8 bytes) and end (4) read once, the words written once
+    multi_bytes = sum(v.numel() for v, _ in slots) * 12 + B * maxwords * 4
+    multi_bound_ms = multi_bytes / HBM_BYTES_PER_S * 1e3
+    slot_shapes = [list(v.shape) for v, _ in slots]
+    del values, nbits, arrays, slots, idx, src
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_merged", "card": card, "cases": mcases,
+          "timing_shape": {"B": B, "slots": slot_shapes, "maxwords": maxwords},
+          "kernel_ms": multi_ms, "plain_ms": multi_plain_ms,
+          "library_ms": multi_library_ms, "bound_ms": multi_bound_ms,
+          "bytes": multi_bytes})
+
+    # --- 4. main path: encode_file on the card ------------------------------
     n = len(pcm)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "smoke.flac")
@@ -361,7 +480,214 @@ def main() -> None:
                                None if device_ms is None
                                else 1 - device_ms / profiled_ms)}})
 
-    # --- 4. kernels line ----------------------------------------------------
+    # --- 5. the merged fill with verify on the card ------------------------
+    os.environ["FLAC_TPU_PACKER"] = "merged"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "merged.flac")
+            torch.cuda.synchronize()
+            pw.pack_words_multi.launches = rs.launches = rr.launches = 0
+            t0 = time.perf_counter()
+            mstats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5, verify=True)
+            torch.cuda.synchronize()
+            merged_wall = time.perf_counter() - t0
+            merged_launches = pw.pack_words_multi.launches
+            verify_launches = (rs.launches, rr.launches)
+            with open(path, "rb") as f:
+                merged_data = f.read()
+    finally:
+        os.environ["FLAC_TPU_PACKER"] = "pallas"
+    if merged_data != data:
+        raise AssertionError("the merged fill's stream differs from the banded one")
+    if merged_launches != 3 * mstats.batches:
+        raise AssertionError(f"pack_words_multi launched {merged_launches} times for "
+                             f"{mstats.batches} batches")
+    full_batches = -(-n_full // 64)  # encode_file's batch_frames; verified
+    if verify_launches != (2 * full_batches, 2 * full_batches):
+        raise AssertionError(f"verify launched the decode kernels {verify_launches} "
+                             f"times for {full_batches} batches of 2 channels")
+    emit({"phase": "encode_merged", "card": card, "batches": mstats.batches,
+          "pack_words_multi_launches": merged_launches,
+          "verify_residual_scan_launches": verify_launches[0],
+          "verify_restore_scan_launches": verify_launches[1],
+          "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
+          "msamples_per_s_per_channel": n / merged_wall / 1e6})
+
+    # --- 6. decode kernels against their plain versions -----------------------
+    d8 = np.frombuffer(data, np.uint8)
+    blocks, audio_offset = parse_metadata(data)
+    offsets = st.index_frames(d8, audio_offset, blocks[0])
+    if offsets is None or len(offsets) != n_full:
+        raise AssertionError("the frame index of the 60 s stream is wrong")
+    words = torch.as_tensor(fd.bytes_to_words(d8, bucket=True), device=dev)
+    geom = fd.DecoderGeometry(blocksize=BLOCKSIZE, channels=2, bits_per_sample=16,
+                              sample_rate=SAMPLE_RATE, max_lpc_order=DECODE_MAXORD)
+    starts = torch.as_tensor(offsets[:DECODE_B] * 8, device=dev)
+
+    def scan_err(a, b):
+        return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+                   for x, y in zip(a, b))
+
+    dcases, scan_args, restore_args = [], [], []
+    pos, assignment, _ = fd.read_frame_header(words, starts, geom.header_ext_bits, 2)
+    for c in range(2):
+        sub = fd.read_subframe_header(words, pos, fd.side_channel_bps(assignment, c, 16, 2),
+                                      BLOCKSIZE, DECODE_MAXORD)
+        args = (words, sub["pos"], BLOCKSIZE, sub["is_coded"], sub["is_verb"],
+                sub["ebps"], sub["order"], sub["plen"], sub["pesc"], sub["ps"])
+        got, ref = rs.residual_scan(*args), fd.narrow_residual_scan(*args)
+        rargs = (got[0], *fd.restore_inputs(sub, DECODE_MAXORD), BLOCKSIZE, DECODE_MAXORD)
+        xk, xp = rr.restore_scan(*rargs), fd.restore_scan(*rargs)
+        torch.cuda.synchronize()
+        dcases.append({"case": f"stream_{DECODE_B}x{BLOCKSIZE}_channel{c}",
+                       "residual_scan_max_abs_err": scan_err(got, ref),
+                       "overflow_frames": int(got[2].sum()),
+                       "restore_scan_max_abs_err": scan_err([xk], [xp])})
+        scan_args.append(args)
+        restore_args.append(rargs)
+        pos = got[1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    for name, w in fold_guard_words().items():
+        args = (torch.as_tensor(w, device=dev), torch.zeros(1, dtype=torch.int64, device=dev),
+                8, one, ~one, *(torch.full((1,), v, dtype=torch.int64, device=dev)
+                                for v in (16, 0, 5, 31, 8)))
+        got, ref = rs.residual_scan(*args), fd.narrow_residual_scan(*args)
+        torch.cuda.synchronize()
+        if bool(got[2][0]) != (name != "fold_exact"):
+            raise AssertionError(f"the scan's overflow flag is wrong on {name}")
+        dcases.append({"case": name, "residual_scan_max_abs_err": scan_err(got, ref),
+                       "ovf": bool(got[2][0])})
+    for cse in dcases:
+        errs = [v for k, v in cse.items() if k.endswith("max_abs_err")]
+        if any(errs):
+            raise AssertionError(f"a decode kernel disagrees on {cse}")
+    # times on channel 0 of the 512 real frames
+    args, rargs = scan_args[0], restore_args[0]
+    scan_ms = time_ms(lambda: rs.residual_scan(*args))
+    scan_plain_ms = time_ms(lambda: fd.narrow_residual_scan(*args), iters=1, warmup=0)
+    restore_ms = time_ms(lambda: rr.restore_scan(*rargs))
+    restore_plain_ms = time_ms(lambda: fd.restore_scan(*rargs), iters=2, warmup=0)
+    res0, pos_out0, _ = rs.residual_scan(*args)
+    # residual scan: the subframe bits it reads, res written, the per-frame
+    # inputs (6 int64 + 2 bool) read and pos/ovf written once
+    sub_bytes = int(((pos_out0 - args[1]).sum() + 7) // 8)
+    scan_bytes = sub_bytes + DECODE_B * BLOCKSIZE * 4 + DECODE_B * (6 * 8 + 2 + 9)
+    scan_bound_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
+    # restore: res read, x written, coefficients and warmup read once; the
+    # multiply-adds these frames need: (T - order) * order per coded frame
+    _, coeffs0, order0, _, _, coded0, _, _ = rargs
+    n_taps = torch.clamp(order0, 0, DECODE_MAXORD)
+    restore_macs = int(torch.where(coded0, (BLOCKSIZE - order0).clamp(min=0) * n_taps,
+                                   0).sum())
+    restore_bytes = (DECODE_B * BLOCKSIZE * (4 + 8) + DECODE_B * DECODE_MAXORD * 16
+                     + DECODE_B * 17)
+    restore_bytes_ms = restore_bytes / HBM_BYTES_PER_S * 1e3
+    restore_ops_ms = restore_macs / INT32_MACS_PER_S * 1e3
+    restore_bound_ms = max(restore_bytes_ms, restore_ops_ms)
+    del scan_args, restore_args, res0
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_decode", "card": card, "cases": dcases,
+          "timing_shape": {"B": DECODE_B, "T": BLOCKSIZE, "maxord": DECODE_MAXORD},
+          "residual_scan": {"kernel_ms": scan_ms, "plain_ms": scan_plain_ms,
+                            "bound_ms": scan_bound_ms, "bytes": scan_bytes,
+                            "subframe_bytes": sub_bytes},
+          "restore_scan": {"kernel_ms": restore_ms, "plain_ms": restore_plain_ms,
+                           "bound_ms": restore_bound_ms, "bytes": restore_bytes,
+                           "bytes_ms": restore_bytes_ms, "macs": restore_macs,
+                           "macs_ms": restore_ops_ms}})
+
+    # --- 7. decode_bytes_device on the card ------------------------------------
+    n_batches = -(-n_full // DECODE_B)
+    torch.cuda.synchronize()
+    rs.launches = rr.launches = 0
+    t0 = time.perf_counter()
+    out, _si, info = st.decode_bytes_device(data)
+    torch.cuda.synchronize()
+    decode_wall = time.perf_counter() - t0
+    decode_launches = (rs.launches, rr.launches)
+    if not np.array_equal(out, pcm):
+        raise AssertionError("decode_bytes_device did not return the input")
+    if info["path"] != "device" or info["errors"] or info["frames"] != n_full + 1:
+        raise AssertionError(f"decode_bytes_device: {info}")
+    if info["host_frames"] != 1 or info["overflow_frames"] != 0:
+        raise AssertionError(f"frames decoded on the host: {info}")
+    if decode_launches != (2 * n_batches, 2 * n_batches):
+        raise AssertionError(f"decode kernels launched {decode_launches} times for "
+                             f"{n_batches} batches of 2 channels")
+    blocks_out = list(st.StreamDecoder(data).iter_blocks())
+    if not np.array_equal(np.concatenate(blocks_out), pcm):
+        raise AssertionError("iter_blocks differs from the input")
+
+    # one 512-frame batch by stage, host clock, device synchronised after each
+    dec = fd.build_frame_decoder(geom, dev)
+
+    def decode_stages():
+        out = {}
+        t_a = time.perf_counter()
+        st.index_frames(d8, audio_offset, blocks[0])
+        t_b = time.perf_counter()
+        w = torch.as_tensor(fd.bytes_to_words(d8, bucket=True), device=dev)
+        torch.cuda.synchronize()
+        t_c = time.perf_counter()
+        p, a, _ = fd.read_frame_header(w, starts, geom.header_ext_bits, 2)
+        parse = scan = restore = 0.0
+        for c in range(2):
+            t_0 = time.perf_counter()
+            sub = fd.read_subframe_header(w, p, fd.side_channel_bps(a, c, 16, 2),
+                                          BLOCKSIZE, DECODE_MAXORD)
+            torch.cuda.synchronize()
+            t_1 = time.perf_counter()
+            r, p, _ = fd.narrow_residual_scan_kernel(
+                w, sub["pos"], BLOCKSIZE, sub["is_coded"], sub["is_verb"], sub["ebps"],
+                sub["order"], sub["plen"], sub["pesc"], sub["ps"])
+            torch.cuda.synchronize()
+            t_2 = time.perf_counter()
+            fd.restore_scan_kernel(r, *fd.restore_inputs(sub, DECODE_MAXORD),
+                                   BLOCKSIZE, DECODE_MAXORD)
+            torch.cuda.synchronize()
+            t_3 = time.perf_counter()
+            parse, scan, restore = parse + t_1 - t_0, scan + t_2 - t_1, restore + t_3 - t_2
+        t_d = time.perf_counter()
+        pcm_b, ends_b, _ = dec(w, starts)
+        torch.cuda.synchronize()
+        t_e = time.perf_counter()
+        pcm_h = pcm_b.cpu().numpy().astype(np.int32)
+        ends_h = ends_b.cpu().numpy() // 8
+        t_f = time.perf_counter()
+        st.check_frame_crc16(data, d8, offsets[:DECODE_B], ends_h)
+        t_g = time.perf_counter()
+        MD5Context().accumulate(pcm_h.reshape(-1, 2), 16)
+        t_h = time.perf_counter()
+        out.update(index_ms=(t_b - t_a) * 1e3, upload_ms=(t_c - t_b) * 1e3,
+                   subframe_parse_ms=parse * 1e3, residual_scan_ms=scan * 1e3,
+                   restore_scan_ms=restore * 1e3, batch_decode_ms=(t_e - t_d) * 1e3,
+                   copy_back_ms=(t_f - t_e) * 1e3, crc16_ms=(t_g - t_f) * 1e3,
+                   md5_ms=(t_h - t_g) * 1e3)
+        return out
+
+    decode_stages()
+    runs = [decode_stages() for _ in range(5)]
+    stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_dec:
+        st.decode_bytes_device(data)
+        torch.cuda.synchronize()
+    dec_spans = [(e.time_range.start, e.time_range.end) for e in prof_dec.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    dec_busy_s = busy_ms(dec_spans) / 1e3 if dec_spans else None
+    emit({"phase": "decode", "card": card, "frames": info["frames"],
+          "batches": n_batches, "path": info["path"],
+          "host_frames": info["host_frames"], "overflow_frames": info["overflow_frames"],
+          "residual_scan_launches": decode_launches[0],
+          "restore_scan_launches": decode_launches[1], "lossless": True,
+          "iter_blocks_equal": True, "wall_s": decode_wall,
+          "msamples_per_s_per_channel": n / decode_wall / 1e6,
+          "run_device_busy_s": dec_busy_s, "run_device_events": len(dec_spans),
+          "run_device_idle_share": (None if dec_busy_s is None
+                                    else 1 - dec_busy_s / decode_wall),
+          "one_batch_512": stages})
+
+    # --- 8. kernels line ----------------------------------------------------
     emit({"kernels": [{
         "name": "pack_words", "route": "cuda",
         "source": "flac_tpu_torch/csrc/pack_words.cu",
@@ -370,7 +696,30 @@ def main() -> None:
         "bit_exact": all(c["max_abs_err"] == 0 for c in cases),
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": library_ms}]})
+        "bound_by": "bytes", "library_ms": library_ms}, {
+        "name": "pack_words_multi", "route": "cuda",
+        "source": "flac_tpu_torch/csrc/pack_words.cu",
+        "replaces": "flac_tpu/encode/packer.py:678",
+        "launches": merged_launches,
+        "bit_exact": all(c["max_abs_err"] == 0 for c in mcases),
+        "max_abs_err": max(c["max_abs_err"] for c in mcases),
+        "ms": multi_ms, "plain_ms": multi_plain_ms, "bound_ms": multi_bound_ms,
+        "bound_by": "bytes", "library_ms": multi_library_ms}, {
+        "name": "residual_scan", "route": "cuda",
+        "source": "flac_tpu_torch/csrc/residual_scan.cu",
+        "replaces": "flac_tpu/decode/frame_decoder.py:290",
+        "launches": decode_launches[0], "bit_exact": True,
+        "max_abs_err": max(c["residual_scan_max_abs_err"] for c in dcases),
+        "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "restore_scan", "route": "cuda",
+        "source": "flac_tpu_torch/csrc/restore_scan.cu",
+        "replaces": "flac_tpu/decode/frame_decoder.py:628",
+        "launches": decode_launches[1], "bit_exact": True,
+        "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases),
+        "ms": restore_ms, "plain_ms": restore_plain_ms, "bound_ms": restore_bound_ms,
+        "bound_by": "bytes" if restore_bytes_ms >= restore_ops_ms else "operations",
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

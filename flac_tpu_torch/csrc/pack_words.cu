@@ -1,4 +1,6 @@
-// Packed-frame word fill for the FLAC field packer, on NVIDIA Hopper (sm_90a).
+// Packed-frame word fills for the FLAC field packer, on NVIDIA Hopper
+// (sm_90a): the banded fill (flac_pack_words) and the merged-slot fill
+// (flac_pack_words_multi, further down).
 //
 // Replaces flac_tpu/encode/packer.py::_pack_words_pallas, the Pallas banded
 // word fill for the TPU. Same function: frame b's word w is the OR of c0 over
@@ -53,7 +55,72 @@ __global__ void pack_words_kernel(const int64_t* __restrict__ values,
   }
 }
 
+// Merged-slot fill. Replaces flac_tpu/encode/packer.py::_pack_words_pallas_multi
+// (call at :678), which the merged packer launches once per slot array
+// (spill 1, spill 2, merged; pack_fields_pallas_merged :553-581). A slot
+// holds a merged value of <= 63 significant bits that ends at bit `end`;
+// contribution j (NCON of them) lands in word we - j. The three arrays'
+// contributions are bit-disjoint (packer.py:514-516), so OR-ing all three
+// launches into one zeroed buffer gives the sum flac_tpu takes.
+//
+// Design: one thread per slot, grid-stride; the contributions are formed in
+// registers and atomicOr'ed, zeros skipped. The TPU kernel's tile bounds and
+// its scalar-prefetched nonzero bitmap (for the spill arrays, almost always
+// all zero) only schedule a sequential grid: here an all-zero slot exits
+// after one 8-byte load. Bound: memory, as the banded fill. Over the three
+// launches each of the F slots (F/2 + F/4 + F/4) has its value (8 bytes) and
+// end (4 bytes) read once; the words are written once.
+template <int NCON>
+__global__ void pack_words_multi_kernel(const int64_t* __restrict__ values,
+                                        const int32_t* __restrict__ ends,
+                                        unsigned int* __restrict__ words,
+                                        int64_t nslots, int32_t slots_per_frame,
+                                        int32_t maxwords) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+       i < nslots; i += stride) {
+    const uint64_t v = (uint64_t)values[i];   // < 2^63: never negative
+    if (v == 0u) continue;
+    const int32_t end = ends[i];              // >= 1 for a nonzero value
+    const int32_t we = (end - 1) >> 5;
+    const int32_t r = end - (we << 5);        // [1, 32]
+    uint32_t c[3];
+    c[0] = (uint32_t)((v & 0xFFFFFFFFull) << (32 - r));  // shift in [0, 31]
+    const uint64_t v1 = v >> r;                         // shift in [1, 32]
+    c[1] = (uint32_t)v1;
+    c[2] = (uint32_t)(v1 >> 32);
+    unsigned int* row = words + (i / slots_per_frame) * (int64_t)maxwords;
+#pragma unroll
+    for (int j = 0; j < NCON; ++j) {
+      const int32_t w = we - j;
+      if (c[j] != 0u && w >= 0 && w < maxwords) atomicOr(row + w, c[j]);
+    }
+  }
+}
+
 }  // namespace
+
+// values int64 [B, S] (merged slots, < 2^63), ends int32 [B, S] (each slot's
+// end bit), words int32 [B, maxwords]: OR'ed into, not cleared (the caller
+// zeroes it once for the three launches of a batch). Returns
+// cudaGetLastError().
+extern "C" int flac_pack_words_multi(const void* values, const void* ends,
+                                     void* words, int64_t batch,
+                                     int32_t slots_per_frame, int32_t maxwords,
+                                     void* stream) {
+  const int64_t nslots = batch * (int64_t)slots_per_frame;
+  if (nslots > 0) {
+    const int threads = 256;
+    int64_t blocks = (nslots + threads - 1) / threads;
+    const int64_t max_blocks = 132 * 32;
+    if (blocks > max_blocks) blocks = max_blocks;
+    pack_words_multi_kernel<3><<<(unsigned int)blocks, threads, 0,
+                                 (cudaStream_t)stream>>>(
+        (const int64_t*)values, (const int32_t*)ends, (unsigned int*)words,
+        nslots, slots_per_frame, maxwords);
+  }
+  return (int)cudaGetLastError();
+}
 
 // values int64 [B, F] (pre-masked, <= 33 significant bits), ends (the
 // inclusive prefix sum of nbits along F) int32 [B, F], words int32

@@ -7,7 +7,10 @@ and the seek-back rewrite at finish (update_metadata_ :2516).
 
 Frames are encoded in batches by encode.frame_encoder on the chosen device
 (None: CUDA); the packed words come back to the host and are written as
-they are (flac_tpu's non-dense emit path).
+they are (flac_tpu's non-dense emit path). With `verify=True` every batch of
+full frames is decoded where it was packed (decode.frame_decoder's
+verifier) and compared with its input before it is written; the final
+partial frame is not verified, as in flac_tpu.
 """
 
 from __future__ import annotations
@@ -19,8 +22,10 @@ import numpy as np
 import torch
 
 from flac_tpu_torch import constants as C
+from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
-from flac_tpu_torch.encode.frame_encoder import EncoderConfig, build_frame_encoder
+from flac_tpu_torch.encode.frame_encoder import (
+    EncoderConfig, build_frame_encoder, resolve_packer_impl)
 from flac_tpu_torch.md5 import MD5Context
 from flac_tpu_torch.metadata import (
     MetadataBlock,
@@ -33,11 +38,8 @@ from flac_tpu_torch.metadata import (
 from flac_tpu_torch.version import VENDOR_STRING
 
 
-def _refuse_verify(verify: bool) -> None:
-    if verify:
-        raise NotImplementedError(
-            "verify=True needs the frame decoder, which is not ported to "
-            "flac_tpu_torch yet (ROADMAP queue 1 item 6)")
+class VerifyError(Exception):
+    pass
 
 
 @dataclass
@@ -64,16 +66,19 @@ class StreamEncoder:
                  batch_frames: int = 64, total_samples_estimate: int = 0,
                  do_md5: bool = True, seekpoints: list[int] | None = None,
                  verify: bool = False, device: str | torch.device | None = None):
-        _refuse_verify(verify)
         self.cfg = config.resolve()
         self.device = resolve_device(device)
+        # the word fill is chosen once (FLAC_TPU_PACKER), for every build
+        self._packer_impl = resolve_packer_impl(None, self.device)
         self.out = out
         self.batch_frames = batch_frames
         self.do_md5 = do_md5
+        self.verify = verify
         self._md5 = MD5Context()
         self._buf = np.zeros((0, self.cfg.channels), np.int32)
         self._frame_no = 0
-        self._encode = build_frame_encoder(self.cfg, device=self.device)
+        self._encode = build_frame_encoder(self.cfg, device=self.device,
+                                           packer_impl=self._packer_impl)
         self._finish_encoders: dict[int, object] = {}
         self.stats = EncodeStats()
         self._finished = False
@@ -120,6 +125,7 @@ class StreamEncoder:
             sorted(p.sample_number for p in self._seektable.points
                    if not p.is_placeholder) if self._seektable else [])
         self._seek_fill: dict[int, tuple[int, int]] = {}
+        self._verifier = make_verifier(self.cfg, self.device) if verify else None
 
     # -- processing ---------------------------------------------------------
 
@@ -161,6 +167,8 @@ class StreamEncoder:
             fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
             words, total_bits, _info = self._encode(batch, fnos)
             self.stats.batches += 1
+            if self.verify:
+                self._run_verify(words, nb, batch)
             self._emit(words.cpu().numpy(), total_bits.cpu().numpy(), nb)
             self._frame_no += nb
             self.stats.samples += nb * bs
@@ -193,6 +201,22 @@ class StreamEncoder:
             self.stats.min_framesize = min(self.stats.min_framesize, n)
             self.stats.max_framesize = max(self.stats.max_framesize, n)
 
+    def _run_verify(self, words: torch.Tensor, nframes: int,
+                    pcm_batch: np.ndarray) -> None:
+        """Verify-while-encoding (the reference's decoder-in-the-loop,
+        stream_encoder.c:314,977-1006): decode each packed frame on the
+        device and compare it with the input PCM."""
+        got = self._verifier(words)[:nframes].to(torch.int32)
+        want = torch.as_tensor(pcm_batch[:nframes], device=self.device)
+        if torch.equal(got, want):
+            return
+        got, want = got.cpu().numpy(), pcm_batch[:nframes]
+        f, s, ch = np.argwhere(got != want)[0]
+        raise VerifyError(
+            f"verify mismatch at frame {int(f) + self._frame_no} sample {int(s)} "
+            f"channel {int(ch)}: expected {int(want[f, s, ch])}, "
+            f"got {int(got[f, s, ch])}")
+
     # -- finish -------------------------------------------------------------
 
     def finish(self) -> StreamInfo:
@@ -213,7 +237,8 @@ class StreamEncoder:
             enc = self._finish_encoders.get(rem)
             if enc is None:
                 enc = build_frame_encoder(self.cfg, blocksize=rem,
-                                          device=self.device)
+                                          device=self.device,
+                                          packer_impl=self._packer_impl)
                 self._finish_encoders[rem] = enc
             words, total_bits, _info = enc(
                 tail[None, :, :], np.asarray([self._frame_no], np.int64))
@@ -268,8 +293,9 @@ def encode_file(in_samples: np.ndarray, sample_rate: int, bits_per_sample: int,
     (None: CUDA; raises without a GPU unless device="cpu").
 
     `in_samples` may also be an array-like that materializes on slicing: the
-    input is fed to the stream encoder in bounded chunks."""
-    _refuse_verify(verify)
+    input is fed to the stream encoder in bounded chunks. `verify=True`
+    decodes every batch of full frames on the device and raises VerifyError
+    on the first sample that differs from the input."""
     device = resolve_device(device)  # raise before the output file is opened
     if in_samples.ndim == 1:
         in_samples = in_samples[:, None]

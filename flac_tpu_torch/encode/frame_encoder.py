@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -240,24 +241,58 @@ def max_frame_bytes(cfg: EncoderConfig, blocksize: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+PACKER_IMPLS = ("pallas", "merged", "xla")
+
+
+def resolve_packer_impl(packer_impl: str | None, device: torch.device) -> str:
+    """The word-fill choice, resolved at build time so that it is part of
+    the build cache's key (flipping the variable mid-process takes effect on
+    the next build instead of being silently ignored).
+
+    None reads FLAC_TPU_PACKER=pallas|merged|xla, or the legacy
+    FLAC_TPU_PACK=merged; unset means "pallas". "pallas" is the banded fill
+    (csrc/pack_words.cu), "merged" the merged-slot fill (the same file's
+    multi kernel), "xla" the plain PyTorch fill, which serves the tests only
+    and is refused on a CUDA device. On the CPU every choice runs the plain
+    versions."""
+    if packer_impl is None:
+        packer_impl = os.environ.get("FLAC_TPU_PACKER")
+        if packer_impl is None and os.environ.get("FLAC_TPU_PACK") == "merged":
+            packer_impl = "merged"
+        packer_impl = packer_impl or "pallas"
+    if packer_impl not in PACKER_IMPLS:
+        raise ValueError(f"unknown packer {packer_impl!r}; one of {PACKER_IMPLS}")
+    if packer_impl == "xla" and device.type == "cuda":
+        raise ValueError("the plain ('xla') word fill serves the CPU tests only; "
+                         "on a CUDA device use 'pallas' or 'merged'")
+    return packer_impl
+
+
 def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
-                        device: str | torch.device | None = None):
+                        device: str | torch.device | None = None,
+                        packer_impl: str | None = None):
     """The encoder for a batch of equal-size frames on `device` (None: CUDA,
     which raises without a GPU). Returns fn(pcm [B, T, Ch] int, frame_numbers
     [B] int) -> (words [B, maxwords] int32, total_bits [B] int32, info dict),
     tensors on the device; inputs may be numpy arrays or tensors.
 
-    `blocksize` overrides cfg.blocksize for the stream's final partial frame.
+    `blocksize` overrides cfg.blocksize for the stream's final partial frame;
+    `packer_impl` selects the word fill (see resolve_packer_impl).
     """
-    return _build_frame_encoder(cfg, blocksize, resolve_device(device))[0]
+    device = resolve_device(device)
+    return _build_frame_encoder(cfg, blocksize, device,
+                                resolve_packer_impl(packer_impl, device))[0]
 
 
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
-                              device: str | torch.device | None = None):
+                              device: str | torch.device | None = None,
+                              packer_impl: str | None = None):
     """The split form: (fields_fn, pack_fn). fields_fn(pcm, fnos) -> (values,
     nbits, info) is the candidate search + field assembly; pack_fn(values,
     nbits) -> (words, total_bits) the word fill and CRC-16."""
-    return _build_frame_encoder(cfg, blocksize, resolve_device(device))[1:]
+    device = resolve_device(device)
+    return _build_frame_encoder(cfg, blocksize, device,
+                                resolve_packer_impl(packer_impl, device))[1:]
 
 
 def _not_ported(what: str, item: int = 4):
@@ -267,7 +302,7 @@ def _not_ported(what: str, item: int = 4):
 
 @functools.lru_cache(maxsize=64)
 def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
-                         device: torch.device):
+                         device: torch.device, packer_impl: str):
     T = blocksize or cfg.blocksize
     is_fractional = T != cfg.blocksize
     Ch = cfg.channels
@@ -664,10 +699,14 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     exact_subframe_bits=sel_exact_bits)
         return values.contiguous(), nbits.contiguous(), info
 
+    fill = {"pallas": packer.pack_fields_kernel,
+            "merged": packer.pack_fields_merged_kernel,
+            "xla": packer.pack_fields}[packer_impl]
+
     def pack(values, nbits):
-        """Word fill (the CUDA kernel for CUDA tensors) + CRC-16 from the
+        """Word fill (a CUDA kernel for CUDA tensors) + CRC-16 from the
         packed words."""
-        words, total_bits = packer.pack_fields_kernel(values, nbits, maxwords)
+        words, total_bits = fill(values, nbits, maxwords)
         crc16_val = packer.crc16_from_words(words, total_bits,
                                             crc16_wtbl, crc16_winv)
         return packer.insert_crc16(words, total_bits, crc16_val), total_bits

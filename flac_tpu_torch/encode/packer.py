@@ -7,7 +7,9 @@ and CRC-16 from the packed words as GF(2) reductions (see flac_tpu.crc).
 
 The word fill has two versions behind `pack_fields_kernel`: the CUDA kernel
 (kernels.pack_words, csrc/pack_words.cu) for CUDA tensors, and the plain
-PyTorch `pack_fields` for CPU tensors. Field values MUST be pre-masked to
+PyTorch `pack_fields` for CPU tensors. The merged packer
+(`pack_fields_merged_kernel` / plain `pack_fields_merged`) fills the same
+words from pre-merged field quads. Field values MUST be pre-masked to
 their nbits.
 
 torch has no uint32 shifts and no XOR reduction, so the uint32 arithmetic
@@ -118,6 +120,120 @@ def pack_fields_kernel(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
         return pack_fields(values, nbits, maxwords)
     ends, total_bits, _, _ = _field_words(nbits)
     words = _pack_words.pack_words(values.contiguous(), ends, maxwords)
+    return words, total_bits
+
+
+# ---------------------------------------------------------------------------
+# Merged-field pack (FLAC_TPU_PACKER=merged): two pairwise merge rounds turn
+# F fields into F/4 merged slots of <= 63 significant bits plus two spill
+# arrays, each slot with <= 3 word contributions (flac_tpu's
+# pack_fields_pallas_merged). A pair (e1 < e2) merges into v1 << d | v2,
+# d = e2 - e1, when sig1 + d <= 63; otherwise the right slot spills. The
+# bits the spill slots own lie strictly inside [e1, e2), so the three
+# arrays' contributions are bit-disjoint and their word images add (or OR)
+# exactly. flac_tpu's tile bounds and nonzero bitmap only schedule a TPU
+# grid; here a slot whose contributions are all 0 costs nothing.
+# ---------------------------------------------------------------------------
+
+MERGE_ROUNDS = 2
+
+
+def _merge_round(v: torch.Tensor, e: torch.Tensor, sig: torch.Tensor):
+    """One pairwise merge round. v int64, e int64, sig int32: [B, F], F
+    even. Returns (merged (v, e, sig) [B, F/2], spill (v, e, sig) [B, F/2])."""
+    vL, vR = v[:, 0::2], v[:, 1::2]
+    eL, eR = e[:, 0::2], e[:, 1::2]
+    sL, sR = sig[:, 0::2], sig[:, 1::2]
+    d = (eR - eL).to(torch.int64)
+    fit = (sL == 0) | ((sL.to(torch.int64) + d) <= 63)
+    dc = torch.clamp(d, 0, 63)
+    vM = torch.where(fit, torch.where(sL > 0, vL << dc, 0) | vR, vL)
+    eM = torch.where(fit, eR, eL)
+    sM = torch.where(fit, torch.where(sL > 0, sL + d.to(sig.dtype), sR), sL)
+    vS = torch.where(fit, 0, vR)
+    sS = torch.where(fit, 0, sR)
+    return (vM, eM, sM), (vS, eR, sS)
+
+
+def merged_slots(values: torch.Tensor, nbits: torch.Tensor):
+    """The merge prep: ([(v int64, e int64) of spill round 1, spill round 2,
+    merged], total_bits int32 [B]). Slot arrays are [B, F/2], [B, F/4],
+    [B, F/4] (F rounded up to even at each round)."""
+    ends = torch.cumsum(nbits, dim=-1, dtype=torch.int32)
+    total_bits = ends[:, -1]
+    v = torch.where(nbits > 0, values, 0).to(torch.int64)
+    e = ends.to(torch.int64)
+    sig = torch.clamp(nbits, max=MAX_SIG_BITS).to(torch.int32)
+    arrays = []
+    for _ in range(MERGE_ROUNDS):
+        if v.shape[1] % 2:  # pad: an empty slot ending where the last one ends
+            v = torch.nn.functional.pad(v, (0, 1))
+            e = torch.cat([e, e[:, -1:]], dim=1)
+            sig = torch.nn.functional.pad(sig, (0, 1))
+        (v, e, sig), (vS, eS, _sS) = _merge_round(v, e, sig)
+        arrays.append((vS, eS))
+    arrays.append((v, e))
+    return arrays, total_bits
+
+
+def contribs3(v: torch.Tensor, e: torch.Tensor):
+    """Word contributions of <= 63-significant-bit slots ending at bit e:
+    ([c0, c1, c2] int64 in [0, 2^32), we int64); c_j lands in word we - j.
+    A merged value is never negative, so `>>` is the logical shift of
+    flac_tpu's shift_right_logical."""
+    we = (e - 1) >> 5
+    r = e - (we << 5)                          # in [1, 32]
+    c0 = ((v & _MASK32) << (32 - r)) & _MASK32
+    v1 = v >> r
+    return [c0, v1 & _MASK32, (v1 >> 32) & _MASK32], we
+
+
+def merged_fill(arrays, maxwords: int) -> torch.Tensor:
+    """The plain fill of merged slot arrays [(v, e), ...] (merged_slots'
+    output) into words [B, maxwords] int32: each contribution goes in with
+    one index_add_, those outside [0, maxwords) dropped."""
+    B = arrays[0][0].shape[0]
+    device = arrays[0][0].device
+    dummy = B * maxwords
+    rowbase = torch.arange(B, dtype=torch.int64, device=device)[:, None] * maxwords
+    idx, src = [], []
+    for v, e in arrays:
+        if bool((v < 0).any()):
+            raise AssertionError("a merged slot exceeds 63 significant bits")
+        cs, we = contribs3(v, e)
+        for j, c in enumerate(cs):
+            w = we - j
+            ok = (w >= 0) & (w < maxwords)
+            idx.append(torch.where(ok, rowbase + w, dummy).flatten())
+            src.append(c.flatten())
+    words = torch.zeros(dummy + 1, dtype=torch.int64, device=device)
+    words.index_add_(0, torch.cat(idx), torch.cat(src))
+    return to_int32_bits(words[:dummy].reshape(B, maxwords))
+
+
+def pack_fields_merged(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain merged packer: the same (words [B, maxwords] int32,
+    total_bits [B] int32) as pack_fields, by merged_slots + merged_fill."""
+    arrays, total_bits = merged_slots(values, nbits)
+    return merged_fill(arrays, maxwords), total_bits
+
+
+def pack_fields_merged_kernel(values: torch.Tensor, nbits: torch.Tensor,
+                              maxwords: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack_fields_merged with the fill done by the hand-written CUDA kernel
+    (kernels.pack_words.pack_words_multi), launched once per slot array into
+    one buffer — the counterpart of flac_tpu's pack_fields_pallas_merged.
+    CUDA tensors launch the kernel (a failure raises); CPU tensors take the
+    plain version."""
+    if values.device.type == "cpu":
+        return pack_fields_merged(values, nbits, maxwords)
+    arrays, total_bits = merged_slots(values, nbits)
+    words = torch.zeros((values.shape[0], maxwords), dtype=torch.int32,
+                        device=values.device)
+    for v, e in arrays:
+        _pack_words.pack_words_multi(v.contiguous(), e.to(torch.int32).contiguous(),
+                                     words)
     return words, total_bits
 
 

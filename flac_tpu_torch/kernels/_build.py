@@ -15,6 +15,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -60,6 +61,16 @@ def build(name: str) -> str:
     build_log[name] = {"seconds": time.perf_counter() - t0,
                        "ptxas": (r.stdout + r.stderr).strip()}
     return so
+
+
+def build_all() -> list[str]:
+    """Build every kernel source of the package (csrc/*.cu) with one nvcc
+    each, all started together; returns the library paths. Raises on the
+    first failure, after every build has ended."""
+    names = sorted(f[:-3] for f in os.listdir(CSRC) if f.endswith(".cu"))
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = [pool.submit(build, n) for n in names]
+    return [f.result() for f in futures]
 
 
 def load(name: str) -> ctypes.CDLL:

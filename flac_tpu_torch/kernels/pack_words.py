@@ -1,10 +1,12 @@
-"""Launcher of the CUDA word-fill kernel (csrc/pack_words.cu), the port of
-flac_tpu/encode/packer.py::_pack_words_pallas.
+"""Launchers of the CUDA word-fill kernels (csrc/pack_words.cu): `pack_words`,
+the port of flac_tpu/encode/packer.py::_pack_words_pallas, and
+`pack_words_multi`, the port of _pack_words_pallas_multi.
 
-`pack_words` takes CUDA tensors only and launches the kernel or raises; the
-routing between it and the plain PyTorch version is done by
-`encode.packer.pack_fields_kernel`, which picks by the tensors' device.
-`launches` counts the launches of this process.
+Both take CUDA tensors only and launch their kernel or raise; the routing
+between them and the plain PyTorch versions is done by
+`encode.packer.pack_fields_kernel` / `pack_fields_merged_kernel`, which pick
+by the tensors' device. `launches` and `pack_words_multi.launches` count
+the launches of this process.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ launches = 0
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pack_words")
-    fn = lib.flac_pack_words
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
-                       ctypes.c_void_p]
+    for fn in (lib.flac_pack_words, lib.flac_pack_words_multi):
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+                           ctypes.c_void_p]
     return lib
 
 
@@ -63,3 +65,34 @@ def pack_words(values: torch.Tensor, ends: torch.Tensor, maxwords: int
         raise RuntimeError(f"pack_words kernel launch failed: CUDA error {rc}")
     launches += 1
     return words
+
+
+def pack_words_multi(values: torch.Tensor, ends: torch.Tensor,
+                     words: torch.Tensor) -> torch.Tensor:
+    """OR the word contributions of merged slots (values int64 [B, S], each
+    < 2^63; ends int32 [B, S]) into `words` int32 [B, maxwords], in place,
+    on one CUDA device; returns `words`. Contribution j of a slot lands in
+    word we - j, j < 3."""
+    if values.device.type != "cuda":
+        raise ValueError(f"pack_words_multi runs on CUDA tensors, got {values.device}")
+    if values.dim() != 2 or words.dim() != 2:
+        raise ValueError("pack_words_multi: values and words must be 2-D")
+    B, S = values.shape
+    maxwords = words.shape[1]
+    _check("values", values, torch.int64, (B, S), values.device)
+    _check("ends", ends, torch.int32, (B, S), values.device)
+    _check("words", words, torch.int32, (B, maxwords), values.device)
+    if not 0 < maxwords < 2 ** 31 or S >= 2 ** 31:
+        raise ValueError(f"pack_words_multi: bad sizes S={S} maxwords={maxwords}")
+    lib = _lib()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.flac_pack_words_multi(values.data_ptr(), ends.data_ptr(),
+                                       words.data_ptr(), B, S, maxwords, stream)
+    if rc != 0:
+        raise RuntimeError(f"pack_words_multi kernel launch failed: CUDA error {rc}")
+    pack_words_multi.launches += 1
+    return words
+
+
+pack_words_multi.launches = 0

@@ -1,6 +1,7 @@
 """The port's boundaries: flac_tpu_torch imports neither JAX nor flac_tpu,
-its entry points default to CUDA and raise without a GPU, and a CUDA tensor
-never reaches the plain word fill."""
+its entry points default to CUDA and raise without a GPU, CPU tensors take
+the plain versions without touching a launch counter, and the launchers
+refuse CPU tensors instead of computing anything."""
 
 from __future__ import annotations
 
@@ -13,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
+from flac_tpu_torch.decode import frame_decoder as t_fd
+from flac_tpu_torch.decode import stream as t_stream
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import encoder as t_encoder
 from flac_tpu_torch.encode import frame_encoder as t_fe
 from flac_tpu_torch.encode import packer as t_packer
-from flac_tpu_torch.kernels import pack_words
+from flac_tpu_torch.kernels import pack_words, residual_scan, restore_scan
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -42,7 +45,7 @@ def test_port_imports_no_jax_and_no_flac_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 20  # every module of the slice was imported
+    assert n_modules >= 30  # every module of the slices so far was imported
 
 
 @pytest.fixture
@@ -60,10 +63,33 @@ def test_default_device_is_cuda_and_raises_without_gpu(no_cuda, tmp_path):
             pytest.raises(RuntimeError, match="CUDA is not available"):
         t_encoder.StreamEncoder(cfg, f)
     out = tmp_path / "e.flac"
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        t_encoder.encode_file(np.zeros((5000, 2), np.int32), 44100, 16, str(out))
+    for verify in (False, True):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            t_encoder.encode_file(np.zeros((5000, 2), np.int32), 44100, 16, str(out),
+                                  verify=verify)
     assert not out.exists()
+    geom = t_fd.DecoderGeometry(blocksize=4096, channels=2, bits_per_sample=16,
+                                sample_rate=44100)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_fd.build_frame_decoder(geom)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_stream.StreamDecoder(b"fLaC")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_stream.decode_bytes_device(b"fLaC")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_plain_word_fill_is_refused_on_cuda(monkeypatch):
+    """FLAC_TPU_PACKER=xla serves the CPU tests only: a CUDA build refuses
+    it (resolved before anything touches the card)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    cfg = t_fe.EncoderConfig.from_level(5, 2, 16, 44100)
+    monkeypatch.setenv("FLAC_TPU_PACKER", "xla")
+    with pytest.raises(ValueError, match="CPU tests only"):
+        t_fe.build_frame_encoder(cfg, device="cuda")
+    with pytest.raises(ValueError, match="CPU tests only"):
+        t_fe.build_frame_encoder_parts(cfg, device="cuda", packer_impl="xla")
+    assert t_fe.resolve_packer_impl(None, torch.device("cpu")) == "xla"
 
 
 def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():
@@ -79,3 +105,45 @@ def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():
     # the kernel launcher refuses CPU tensors instead of computing anything
     with pytest.raises(ValueError, match="CUDA"):
         pack_words.pack_words(v, torch.cumsum(n, 1, dtype=torch.int32), 60)
+
+
+def _scan_inputs(B=2, T=8):
+    words = torch.zeros(64, dtype=torch.int32)
+    i64 = torch.zeros(B, dtype=torch.int64)
+    flags = torch.zeros(B, dtype=torch.bool)
+    return (words, i64, T, flags, flags, i64 + 16, i64, i64 + 4, i64 + 15, i64 + T)
+
+
+def test_cpu_tensors_leave_the_new_launch_counters_alone():
+    rng = np.random.default_rng(4)
+    nbits = rng.integers(0, 34, size=(3, 50)).astype(np.int32)
+    values = rng.integers(0, 1 << 62, size=(3, 50)) & ((1 << nbits.astype(np.int64)) - 1)
+    v, n = torch.as_tensor(values), torch.as_tensor(nbits)
+    counts = (pack_words.pack_words_multi.launches, residual_scan.launches,
+              restore_scan.launches)
+    got = t_packer.pack_fields_merged_kernel(v, n, 60)
+    ref = t_packer.pack_fields_merged(v, n, 60)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    args = _scan_inputs()
+    res, pos, ovf = t_fd.narrow_residual_scan_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in
+               zip((res, pos, ovf), t_fd.narrow_residual_scan(*args)))
+    coeffs = torch.zeros((2, 4), dtype=torch.int64)
+    rargs = (res, coeffs, args[1], args[1], coeffs, args[3], 8, 4)
+    assert torch.equal(t_fd.restore_scan_kernel(*rargs), t_fd.restore_scan(*rargs))
+    assert counts == (pack_words.pack_words_multi.launches, residual_scan.launches,
+                      restore_scan.launches)
+
+
+def test_new_launchers_refuse_cpu_tensors():
+    v = torch.zeros((2, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        pack_words.pack_words_multi(v, v.to(torch.int32),
+                                    torch.zeros((2, 4), dtype=torch.int32))
+    args = _scan_inputs()
+    with pytest.raises(ValueError, match="CUDA"):
+        residual_scan.residual_scan(*args)
+    res = torch.zeros((2, 8), dtype=torch.int32)
+    c = torch.zeros((2, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        restore_scan.restore_scan(res, c, args[1], args[1], c, args[3], 8, 4)

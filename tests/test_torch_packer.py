@@ -1,9 +1,12 @@
 """The port's field packer against flac_tpu's: the plain word fill, the
-CRC-8 field reduction and the word-level CRC-16, bit for bit, on the cases
-of tests/test_packer_pallas.py (inputs from their seeds, numpy). One small
-case is also held against flac_tpu's Pallas kernel in interpret mode. The
-CUDA kernel itself is held against the plain version on the card
-(`-m cuda`, and chip_smoke.py)."""
+merge round and the plain merged fill, the CRC-8 field reduction and the
+word-level CRC-16, bit for bit, on the cases of tests/test_packer_pallas.py
+(inputs from their seeds, numpy). One small case of the banded fill and the
+two degenerate cases of the merged fill are also held against flac_tpu's
+Pallas kernels in interpret mode (the random cases of the merged fill are in
+test_torch_packer_merged.py, to keep each file short). The CUDA kernels
+themselves are held against their plain versions on the card (`-m cuda`,
+and chip_smoke.py)."""
 
 from __future__ import annotations
 
@@ -79,6 +82,53 @@ def test_plain_pack_matches_pallas_kernel_interpret():
     np.testing.assert_array_equal(_u32(got_w), _u32(ref_w))
 
 
+def _merged_matches_interpret(name):
+    values, nbits, maxwords = _case(name)
+    ref_w, ref_t = j_packer.pack_fields_pallas_merged(
+        jnp.asarray(values), jnp.asarray(nbits), maxwords, interpret=True)
+    got_w, got_t = t_packer.pack_fields_merged(torch.as_tensor(values),
+                                               torch.as_tensor(nbits), maxwords)
+    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+    np.testing.assert_array_equal(_u32(got_w), _u32(ref_w))
+
+
+@pytest.mark.parametrize("name", ["zero_runs", "all_33bit"])
+def test_plain_merged_fill_matches_pallas_merged_interpret(name):
+    """Thousands of empty fields in one word, and adjacent 33-bit fields (no
+    pair fits in 63 bits: every round spills, test_merged_all_spill)."""
+    _merged_matches_interpret(name)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_merge_round_matches(name):
+    """Both merge rounds, as pack_fields_pallas_merged runs them."""
+    values, nbits, _ = _case(name)
+    ends = np.cumsum(nbits, axis=1)
+    v = np.where(nbits > 0, values, 0).astype(np.int64)
+    sig = np.minimum(nbits, 33).astype(np.int32)
+    jv, je, js = jnp.asarray(v), jnp.asarray(ends.astype(np.int64)), jnp.asarray(sig)
+    tv, te, ts = torch.as_tensor(v), torch.as_tensor(ends.astype(np.int64)), torch.as_tensor(sig)
+    for _ in range(t_packer.MERGE_ROUNDS):
+        if tv.shape[1] % 2:
+            jv, js = jnp.pad(jv, ((0, 0), (0, 1))), jnp.pad(js, ((0, 0), (0, 1)))
+            je = jnp.pad(je, ((0, 0), (0, 1)), mode="edge")
+            tv, ts = (torch.nn.functional.pad(x, (0, 1)) for x in (tv, ts))
+            te = torch.cat([te, te[:, -1:]], dim=1)
+        (jv, je, js), jspill = j_packer._merge_round(jv, je, js)
+        (tv, te, ts), tspill = t_packer._merge_round(tv, te, ts)
+        for got, ref in zip((tv, te, ts) + tspill, (jv, je, js) + jspill):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_plain_merged_fill_matches_banded(name):
+    values, nbits, maxwords = _case(name)
+    v, n = torch.as_tensor(values), torch.as_tensor(nbits)
+    got_w, got_t = t_packer.pack_fields_merged(v, n, maxwords)
+    ref_w, ref_t = t_packer.pack_fields(v, n, maxwords)
+    assert torch.equal(got_t, ref_t) and torch.equal(got_w, ref_w)
+
+
 @pytest.mark.parametrize("name", CASES)
 def test_crc_reduce_matches(name):
     """CRC-8 of a field prefix, as the frame header's CRC-8 uses it."""
@@ -138,5 +188,21 @@ def test_cuda_kernel_matches_plain_on_card(name):
     got_w, got_t = t_packer.pack_fields_kernel(v, n, maxwords)
     ref_w, ref_t = t_packer.pack_fields(v, n, maxwords)
     assert pack_words.launches == before + 1
+    assert torch.equal(got_t, ref_t)
+    assert torch.equal(got_w, ref_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CASES)
+def test_cuda_merged_kernel_matches_plain_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    values, nbits, maxwords = _case(name)
+    v = torch.as_tensor(values, device="cuda")
+    n = torch.as_tensor(nbits, device="cuda")
+    before = pack_words.pack_words_multi.launches
+    got_w, got_t = t_packer.pack_fields_merged_kernel(v, n, maxwords)
+    ref_w, ref_t = t_packer.pack_fields_merged(v, n, maxwords)
+    assert pack_words.pack_words_multi.launches == before + 3
     assert torch.equal(got_t, ref_t)
     assert torch.equal(got_w, ref_w)
