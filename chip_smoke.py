@@ -39,19 +39,31 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
                     pack_words_multi must launch 3 times a batch, and the
                     verifier must decode every batch of full frames through
-                    the decode kernels without a VerifyError.
-6. kernels_decode — holds the residual scan and the restore kernels against
-                    their plain versions, bit for bit (res, end positions and
-                    overflow flags; samples), on the real subframes of the
-                    first 512 frames of phase 4's stream and on three bit
-                    strings at the scan's guards (a Rice fold that trips, one
-                    that decodes exactly, a unary run of 60 zeros); then times
-                    kernel and plain version at B=512, T=4096.
+                    the decode kernels (the subframe scan once a channel, the
+                    restore once) without a VerifyError. The merged encode
+                    runs once more without verify, for the fill's own cost.
+6. kernels_decode — holds the subframe-scan kernel (the subframe-header parse
+                    and the residual scan in one) against its plain version,
+                    read_subframe_header then narrow_residual_scan, bit for
+                    bit on every output (every parse field, res, end
+                    positions, overflow flags): on both channels of the first
+                    512 frames of phase 4's stream; on three bit strings at
+                    the scan's guards (a Rice fold that trips, one that
+                    decodes exactly, a unary run of 60 zeros), each behind a
+                    FIXED order-0, RICE2 subframe header; and on 512 random
+                    starts in random words with zero runs (every header
+                    branch: corrupt types, long wasted runs, negative sample
+                    widths and positions). Holds the restore kernel against
+                    restore_scan on the two channels' rows stacked and on the
+                    random rows. Then times kernels and plain versions at
+                    B=512, T=4096.
 7. decode         — decode_bytes_device of phase 4's stream on the card: the
                     exact input, MD5 checked, on path "device", with only the
-                    final partial frame on the host and both decode kernels
-                    launched batches x channels times; iter_blocks gives the
-                    same PCM. One 512-frame batch is timed by stage, and the
+                    final partial frame on the host, the subframe scan
+                    launched batches x channels times and the restore once a
+                    batch; iter_blocks gives the same PCM. The decode runs 5
+                    more times for the spread of its wall. One 512-frame batch
+                    is timed by stage and once under torch.profiler, and the
                     whole decode runs again under torch.profiler for its
                     device idle share.
 8. the `kernels` line, one entry per ported kernel, with its launches on its
@@ -138,12 +150,16 @@ def packer_cases():
            np.full((8, 64), 33, np.int32), 70)
 
 
+# a FIXED order-0 subframe header, then RICE2 with partition order 0
+GUARD_SUBFRAME_HEADER = "00010000" + "01" + "0000"
+
+
 def fold_guard_words(n: int = 8) -> dict:
-    """RICE2 partitions of n samples with k=26: the two bit strings of
-    tests/test_device_decoder.py::TestNarrowScan.test_fold_guard (q=47 trips
-    the fold guard; q=15 decodes exactly) and a unary run of 60 zeros.
-    name -> words (int32, zero-padded)."""
-    k26 = format(26, "05b")
+    """RICE2 partitions of n samples with k=26, behind GUARD_SUBFRAME_HEADER:
+    the two bit strings of tests/test_device_decoder.py::TestNarrowScan.
+    test_fold_guard (q=47 trips the fold guard; q=15 decodes exactly) and a
+    unary run of 60 zeros. name -> words (int32, zero-padded)."""
+    k26 = GUARD_SUBFRAME_HEADER + format(26, "05b")
     tail = ("1" + "0" * 26) * (n - 1)
     lsb = format(0x155AA55 & ((1 << 26) - 1), "026b")
     out = {}
@@ -155,6 +171,30 @@ def fold_guard_words(n: int = 8) -> dict:
                      dtype=np.uint64).astype(np.uint32).view(np.int32)
         out[name] = np.concatenate([w, np.zeros(16, np.int32)])
     return out
+
+
+def random_subframes(n: int = 512, nwords: int = 1 << 14, seed: int = 3):
+    """Random words with zero runs, and n random subframe starts with their
+    sample widths (16 or 17). A quarter of the starts get a header byte with
+    the wasted-bits flag set (a third of them VERBATIM, the rest of a random
+    type), then a zero run of up to 600 bits: long wasted runs, negative
+    sample widths, and positions that go below 0 (VERBATIM samples of a
+    negative width move back). Returns (words int32 [nwords], starts int64
+    [n], cbps [n])."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 1 << 32, nwords, dtype=np.uint64).astype(np.uint32)
+    for s in rng.integers(0, nwords - 40, nwords // 200):
+        u[s:s + rng.integers(1, 41)] = 0
+    starts = rng.integers(0, (nwords - 64) * 32, n)
+    bits = np.unpackbits(u.astype(">u4").view(np.uint8))
+    for i, s in enumerate(starts[: n // 4]):
+        run = int(rng.integers(0, 601))
+        hdr = ((1 if i % 3 == 0 else int(rng.integers(0, 64))) << 1) | 1
+        bits[s:s + 8] = np.unpackbits(np.array([hdr], np.uint8))
+        bits[s + 8:s + 8 + run] = 0
+        bits[s + 8 + run] = 1
+    words = np.packbits(bits).view(">u4").astype(np.uint32).view(np.int32)
+    return words, starts.astype(np.int64), rng.integers(16, 18, n).astype(np.int64)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -495,6 +535,12 @@ def main() -> None:
             verify_launches = (rs.launches, rr.launches)
             with open(path, "rb") as f:
                 merged_data = f.read()
+            # the same without verify: what the merged fill costs alone
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "nv.flac"), level=5)
+            torch.cuda.synchronize()
+            merged_noverify_wall = time.perf_counter() - t0
     finally:
         os.environ["FLAC_TPU_PACKER"] = "pallas"
     if merged_data != data:
@@ -503,14 +549,15 @@ def main() -> None:
         raise AssertionError(f"pack_words_multi launched {merged_launches} times for "
                              f"{mstats.batches} batches")
     full_batches = -(-n_full // 64)  # encode_file's batch_frames; verified
-    if verify_launches != (2 * full_batches, 2 * full_batches):
+    if verify_launches != (2 * full_batches, full_batches):
         raise AssertionError(f"verify launched the decode kernels {verify_launches} "
                              f"times for {full_batches} batches of 2 channels")
     emit({"phase": "encode_merged", "card": card, "batches": mstats.batches,
           "pack_words_multi_launches": merged_launches,
-          "verify_residual_scan_launches": verify_launches[0],
+          "verify_subframe_scan_launches": verify_launches[0],
           "verify_restore_scan_launches": verify_launches[1],
           "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
+          "wall_s_without_verify": merged_noverify_wall,
           "msamples_per_s_per_channel": n / merged_wall / 1e6})
 
     # --- 6. decode kernels against their plain versions -----------------------
@@ -524,71 +571,105 @@ def main() -> None:
                               sample_rate=SAMPLE_RATE, max_lpc_order=DECODE_MAXORD)
     starts = torch.as_tensor(offsets[:DECODE_B] * 8, device=dev)
 
-    def scan_err(a, b):
-        return max(int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
-                   for x, y in zip(a, b))
+    def err(a, b):
+        return int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) if a.numel() else 0
 
-    dcases, scan_args, restore_args = [], [], []
+    def scan_err(got, ref):
+        """Largest difference over every output of a subframe scan."""
+        if list(got[0]) != list(ref[0]):
+            raise AssertionError("the subframe scan's fields differ from the plain parse's")
+        pairs = [(got[0][k], ref[0][k]) for k in ref[0]] + list(zip(got[1:], ref[1:]))
+        if any(a.shape != b.shape or a.dtype != b.dtype for a, b in pairs):
+            raise AssertionError("a subframe-scan output differs in shape or dtype")
+        return max(err(a, b) for a, b in pairs)
+
+    def stack_rows(rows):
+        return [torch.cat(parts) for parts in zip(*rows)]
+
+    dcases, scan_inputs, rows = [], [], []
     pos, assignment, _ = fd.read_frame_header(words, starts, geom.header_ext_bits, 2)
     for c in range(2):
-        sub = fd.read_subframe_header(words, pos, fd.side_channel_bps(assignment, c, 16, 2),
-                                      BLOCKSIZE, DECODE_MAXORD)
-        args = (words, sub["pos"], BLOCKSIZE, sub["is_coded"], sub["is_verb"],
-                sub["ebps"], sub["order"], sub["plen"], sub["pesc"], sub["ps"])
-        got, ref = rs.residual_scan(*args), fd.narrow_residual_scan(*args)
-        rargs = (got[0], *fd.restore_inputs(sub, DECODE_MAXORD), BLOCKSIZE, DECODE_MAXORD)
-        xk, xp = rr.restore_scan(*rargs), fd.restore_scan(*rargs)
+        cbps = fd.side_channel_bps(assignment, c, 16, 2)
+        got = rs.subframe_scan(words, pos, cbps, BLOCKSIZE, DECODE_MAXORD)
+        ref = fd.subframe_scan(words, pos, cbps, BLOCKSIZE, DECODE_MAXORD)
         torch.cuda.synchronize()
         dcases.append({"case": f"stream_{DECODE_B}x{BLOCKSIZE}_channel{c}",
-                       "residual_scan_max_abs_err": scan_err(got, ref),
-                       "overflow_frames": int(got[2].sum()),
-                       "restore_scan_max_abs_err": scan_err([xk], [xp])})
-        scan_args.append(args)
-        restore_args.append(rargs)
-        pos = got[1]
-    one = torch.ones(1, dtype=torch.bool, device=dev)
+                       "subframe_scan_max_abs_err": scan_err(got, ref),
+                       "overflow_frames": int(got[3].sum())})
+        scan_inputs.append((pos, cbps, got[2]))
+        rows.append((got[1], *fd.restore_inputs(got[0], DECODE_MAXORD)))
+        pos = got[2]
+    rargs = (*stack_rows(rows), BLOCKSIZE, DECODE_MAXORD)
+    xk, xp = rr.restore_scan(*rargs), fd.restore_scan(*rargs)
+    torch.cuda.synchronize()
+    dcases.append({"case": f"stream_stacked_{2 * DECODE_B}x{BLOCKSIZE}",
+                   "restore_scan_max_abs_err": err(xk, xp)})
+    del xk, xp
     for name, w in fold_guard_words().items():
         args = (torch.as_tensor(w, device=dev), torch.zeros(1, dtype=torch.int64, device=dev),
-                8, one, ~one, *(torch.full((1,), v, dtype=torch.int64, device=dev)
-                                for v in (16, 0, 5, 31, 8)))
-        got, ref = rs.residual_scan(*args), fd.narrow_residual_scan(*args)
+                torch.full((1,), 16, dtype=torch.int64, device=dev), 8, DECODE_MAXORD)
+        got, ref = rs.subframe_scan(*args), fd.subframe_scan(*args)
         torch.cuda.synchronize()
-        if bool(got[2][0]) != (name != "fold_exact"):
-            raise AssertionError(f"the scan's overflow flag is wrong on {name}")
-        dcases.append({"case": name, "residual_scan_max_abs_err": scan_err(got, ref),
-                       "ovf": bool(got[2][0])})
+        if bool(got[3][0]) != (name != "fold_exact") or not bool(got[0]["is_fixed"][0]):
+            raise AssertionError(f"the scan's overflow flag or parse is wrong on {name}")
+        dcases.append({"case": name, "subframe_scan_max_abs_err": scan_err(got, ref),
+                       "ovf": bool(got[3][0])})
+    rw, rstarts, rcbps = random_subframes()
+    rargs_rnd = (torch.as_tensor(rw, device=dev), torch.as_tensor(rstarts, device=dev),
+                 torch.as_tensor(rcbps, device=dev), BLOCKSIZE, DECODE_MAXORD)
+    got, ref = rs.subframe_scan(*rargs_rnd), fd.subframe_scan(*rargs_rnd)
+    torch.cuda.synchronize()
+    sub = ref[0]
+    dcases.append({"case": f"random_{len(rstarts)}x{BLOCKSIZE}",
+                   "subframe_scan_max_abs_err": scan_err(got, ref),
+                   "overflow_frames": int(got[3].sum()),
+                   "types": {k: int(sub[k].sum()) for k in
+                             ("is_const", "is_verb", "is_fixed", "is_lpc")},
+                   "wasted_over_width": int((sub["wasted"] > torch.as_tensor(
+                       rcbps, device=dev)).sum()),
+                   "negative_pos": int((sub["pos"] < 0).sum() + (ref[2] < 0).sum())})
+    rnd = (got[1], *fd.restore_inputs(got[0], DECODE_MAXORD), BLOCKSIZE, DECODE_MAXORD)
+    xk, xp = rr.restore_scan(*rnd), fd.restore_scan(*rnd)
+    torch.cuda.synchronize()
+    dcases[-1]["restore_scan_max_abs_err"] = err(xk, xp)
+    del got, ref, sub, rnd, xk, xp
     for cse in dcases:
         errs = [v for k, v in cse.items() if k.endswith("max_abs_err")]
         if any(errs):
             raise AssertionError(f"a decode kernel disagrees on {cse}")
-    # times on channel 0 of the 512 real frames
-    args, rargs = scan_args[0], restore_args[0]
-    scan_ms = time_ms(lambda: rs.residual_scan(*args))
-    scan_plain_ms = time_ms(lambda: fd.narrow_residual_scan(*args), iters=1, warmup=0)
+    # times: the scan on channel 0 of the 512 real frames, the restore on
+    # both channels' rows stacked (one launch, as the frame decoder runs it)
+    pos0, cbps0, end0 = scan_inputs[0]
+    sargs = (words, pos0, cbps0, BLOCKSIZE, DECODE_MAXORD)
+    scan_ms = time_ms(lambda: rs.subframe_scan(*sargs))
+    scan_plain_ms = time_ms(lambda: fd.subframe_scan(*sargs), iters=1, warmup=0)
     restore_ms = time_ms(lambda: rr.restore_scan(*rargs))
     restore_plain_ms = time_ms(lambda: fd.restore_scan(*rargs), iters=2, warmup=0)
-    res0, pos_out0, _ = rs.residual_scan(*args)
-    # residual scan: the subframe bits it reads, res written, the per-frame
-    # inputs (6 int64 + 2 bool) read and pos/ovf written once
-    sub_bytes = int(((pos_out0 - args[1]).sum() + 7) // 8)
-    scan_bytes = sub_bytes + DECODE_B * BLOCKSIZE * 4 + DECODE_B * (6 * 8 + 2 + 9)
+    # subframe scan: the subframe's bits from its first header bit, res
+    # written, pos and cbps read, and the parse fields (9 int64, 5 bool,
+    # warmup and coefficients), end and ovf written once
+    sub_bytes = int(((end0 - pos0).sum() + 7) // 8)
+    scan_bytes = (sub_bytes + DECODE_B * BLOCKSIZE * 4
+                  + DECODE_B * (16 + 9 * 8 + 5 + 2 * DECODE_MAXORD * 8 + 9))
     scan_bound_ms = scan_bytes / HBM_BYTES_PER_S * 1e3
     # restore: res read, x written, coefficients and warmup read once; the
-    # multiply-adds these frames need: (T - order) * order per coded frame
-    _, coeffs0, order0, _, _, coded0, _, _ = rargs
-    n_taps = torch.clamp(order0, 0, DECODE_MAXORD)
-    restore_macs = int(torch.where(coded0, (BLOCKSIZE - order0).clamp(min=0) * n_taps,
+    # multiply-adds these rows need: (T - order) * order per coded row
+    res_all, coeffs_all, order_all, _, _, coded_all, _, _ = rargs
+    n_rows = res_all.shape[0]
+    n_taps = torch.clamp(order_all, 0, DECODE_MAXORD)
+    restore_macs = int(torch.where(coded_all, (BLOCKSIZE - order_all).clamp(min=0) * n_taps,
                                    0).sum())
-    restore_bytes = (DECODE_B * BLOCKSIZE * (4 + 8) + DECODE_B * DECODE_MAXORD * 16
-                     + DECODE_B * 17)
+    restore_bytes = (n_rows * BLOCKSIZE * (4 + 8) + n_rows * DECODE_MAXORD * 16
+                     + n_rows * 17)
     restore_bytes_ms = restore_bytes / HBM_BYTES_PER_S * 1e3
     restore_ops_ms = restore_macs / INT32_MACS_PER_S * 1e3
     restore_bound_ms = max(restore_bytes_ms, restore_ops_ms)
-    del scan_args, restore_args, res0
+    del scan_inputs, rows, rargs, res_all, coeffs_all
     torch.cuda.empty_cache()
     emit({"phase": "kernels_decode", "card": card, "cases": dcases,
-          "timing_shape": {"B": DECODE_B, "T": BLOCKSIZE, "maxord": DECODE_MAXORD},
-          "residual_scan": {"kernel_ms": scan_ms, "plain_ms": scan_plain_ms,
+          "timing_shape": {"B": DECODE_B, "T": BLOCKSIZE, "maxord": DECODE_MAXORD,
+                           "restore_rows": n_rows},
+          "subframe_scan": {"kernel_ms": scan_ms, "plain_ms": scan_plain_ms,
                             "bound_ms": scan_bound_ms, "bytes": scan_bytes,
                             "subframe_bytes": sub_bytes},
           "restore_scan": {"kernel_ms": restore_ms, "plain_ms": restore_plain_ms,
@@ -611,12 +692,20 @@ def main() -> None:
         raise AssertionError(f"decode_bytes_device: {info}")
     if info["host_frames"] != 1 or info["overflow_frames"] != 0:
         raise AssertionError(f"frames decoded on the host: {info}")
-    if decode_launches != (2 * n_batches, 2 * n_batches):
+    if decode_launches != (2 * n_batches, n_batches):
         raise AssertionError(f"decode kernels launched {decode_launches} times for "
                              f"{n_batches} batches of 2 channels")
     blocks_out = list(st.StreamDecoder(data).iter_blocks())
     if not np.array_equal(np.concatenate(blocks_out), pcm):
         raise AssertionError("iter_blocks differs from the input")
+    # the host clock varies from call to call: the decode again, 5 times
+    decode_walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.decode_bytes_device(data)
+        torch.cuda.synchronize()
+        decode_walls.append(time.perf_counter() - t0)
 
     # one 512-frame batch by stage, host clock, device synchronised after each
     dec = fd.build_frame_decoder(geom, dev)
@@ -630,24 +719,18 @@ def main() -> None:
         torch.cuda.synchronize()
         t_c = time.perf_counter()
         p, a, _ = fd.read_frame_header(w, starts, geom.header_ext_bits, 2)
-        parse = scan = restore = 0.0
+        torch.cuda.synchronize()
+        t_0 = time.perf_counter()
+        batch_rows = []
         for c in range(2):
-            t_0 = time.perf_counter()
-            sub = fd.read_subframe_header(w, p, fd.side_channel_bps(a, c, 16, 2),
-                                          BLOCKSIZE, DECODE_MAXORD)
-            torch.cuda.synchronize()
-            t_1 = time.perf_counter()
-            r, p, _ = fd.narrow_residual_scan_kernel(
-                w, sub["pos"], BLOCKSIZE, sub["is_coded"], sub["is_verb"], sub["ebps"],
-                sub["order"], sub["plen"], sub["pesc"], sub["ps"])
-            torch.cuda.synchronize()
-            t_2 = time.perf_counter()
-            fd.restore_scan_kernel(r, *fd.restore_inputs(sub, DECODE_MAXORD),
-                                   BLOCKSIZE, DECODE_MAXORD)
-            torch.cuda.synchronize()
-            t_3 = time.perf_counter()
-            parse, scan, restore = parse + t_1 - t_0, scan + t_2 - t_1, restore + t_3 - t_2
-        t_d = time.perf_counter()
+            sub, r, p, _ = fd.subframe_scan_kernel(
+                w, p, fd.side_channel_bps(a, c, 16, 2), BLOCKSIZE, DECODE_MAXORD)
+            batch_rows.append((r, *fd.restore_inputs(sub, DECODE_MAXORD)))
+        torch.cuda.synchronize()
+        t_1 = time.perf_counter()
+        fd.restore_scan_kernel(*stack_rows(batch_rows), BLOCKSIZE, DECODE_MAXORD)
+        torch.cuda.synchronize()
+        t_2 = time.perf_counter()
         pcm_b, ends_b, _ = dec(w, starts)
         torch.cuda.synchronize()
         t_e = time.perf_counter()
@@ -659,8 +742,9 @@ def main() -> None:
         MD5Context().accumulate(pcm_h.reshape(-1, 2), 16)
         t_h = time.perf_counter()
         out.update(index_ms=(t_b - t_a) * 1e3, upload_ms=(t_c - t_b) * 1e3,
-                   subframe_parse_ms=parse * 1e3, residual_scan_ms=scan * 1e3,
-                   restore_scan_ms=restore * 1e3, batch_decode_ms=(t_e - t_d) * 1e3,
+                   frame_header_ms=(t_0 - t_c) * 1e3,
+                   subframe_scan_ms=(t_1 - t_0) * 1e3,
+                   restore_scan_ms=(t_2 - t_1) * 1e3, batch_decode_ms=(t_e - t_2) * 1e3,
                    copy_back_ms=(t_f - t_e) * 1e3, crc16_ms=(t_g - t_f) * 1e3,
                    md5_ms=(t_h - t_g) * 1e3)
         return out
@@ -669,6 +753,27 @@ def main() -> None:
     runs = [decode_stages() for _ in range(5)]
     stages = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
     from torch.profiler import ProfilerActivity, profile
+    # one batch decode under the profiler: the device's busy time and its
+    # time in each kernel
+    words_dev = torch.as_tensor(fd.bytes_to_words(d8, bucket=True), device=dev)
+    dec(words_dev, starts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof_b:
+        dec(words_dev, starts)
+        torch.cuda.synchronize()
+    b_events = [e for e in prof_b.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    batch_kernel_ms: dict = {}
+    for e in b_events:
+        if "subframe_scan" in e.name or "restore_scan" in e.name:
+            key = "subframe_scan" if "subframe_scan" in e.name else "restore_scan"
+            batch_kernel_ms[key] = batch_kernel_ms.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    stages["device_busy_ms"] = (busy_ms([(e.time_range.start, e.time_range.end)
+                                         for e in b_events]) if b_events else None)
+    stages["device_events"] = len(b_events)
+    stages["device_kernel_ms"] = batch_kernel_ms
+    del words_dev
     with profile(activities=[ProfilerActivity.CUDA]) as prof_dec:
         st.decode_bytes_device(data)
         torch.cuda.synchronize()
@@ -678,9 +783,11 @@ def main() -> None:
     emit({"phase": "decode", "card": card, "frames": info["frames"],
           "batches": n_batches, "path": info["path"],
           "host_frames": info["host_frames"], "overflow_frames": info["overflow_frames"],
-          "residual_scan_launches": decode_launches[0],
+          "subframe_scan_launches": decode_launches[0],
           "restore_scan_launches": decode_launches[1], "lossless": True,
           "iter_blocks_equal": True, "wall_s": decode_wall,
+          "wall_s_repeats": decode_walls,
+          "wall_s_median_of_repeats": float(np.median(decode_walls)),
           "msamples_per_s_per_channel": n / decode_wall / 1e6,
           "run_device_busy_s": dec_busy_s, "run_device_events": len(dec_spans),
           "run_device_idle_share": (None if dec_busy_s is None
@@ -705,13 +812,14 @@ def main() -> None:
         "max_abs_err": max(c["max_abs_err"] for c in mcases),
         "ms": multi_ms, "plain_ms": multi_plain_ms, "bound_ms": multi_bound_ms,
         "bound_by": "bytes", "library_ms": multi_library_ms}, {
-        "name": "residual_scan", "route": "cuda",
+        "name": "residual_scan", "route": "cuda", "kernel": "subframe_scan",
         "source": "flac_tpu_torch/csrc/residual_scan.cu",
-        "replaces": "flac_tpu/decode/frame_decoder.py:290",
+        "replaces": "flac_tpu/decode/frame_decoder.py:409-456, :291",
         "launches": decode_launches[0], "bit_exact": True,
-        "max_abs_err": max(c["residual_scan_max_abs_err"] for c in dcases),
+        "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in dcases),
         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-        "bound_by": "bytes", "library_ms": None}, {
+        "bound_by": "bytes", "library_ms": None,
+        "pr2_ms": "1.946-1.951, the scan alone after an eager parse (PERF.md)"}, {
         "name": "restore_scan", "route": "cuda",
         "source": "flac_tpu_torch/csrc/restore_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:628",
@@ -719,7 +827,8 @@ def main() -> None:
         "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases),
         "ms": restore_ms, "plain_ms": restore_plain_ms, "bound_ms": restore_bound_ms,
         "bound_by": "bytes" if restore_bytes_ms >= restore_ops_ms else "operations",
-        "library_ms": None}]})
+        "library_ms": None,
+        "pr2_ms": "2.397-2.406 a launch of 512 rows, 2 launches a batch (PERF.md)"}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -1,36 +1,103 @@
-// Residual/verbatim window scan of the FLAC frame decoder, on NVIDIA Hopper
-// (sm_90a).
+// Subframe scan of the FLAC frame decoder, on NVIDIA Hopper (sm_90a): the
+// subframe-header parse and the residual/verbatim window scan, one subframe
+// of every frame of a batch, in one launch.
 //
-// Replaces flac_tpu/decode/frame_decoder.py::_narrow_residual_scan (:130-293,
-// the lax.scan at :290-291), which reads one subframe of every frame of a
-// batch: Rice partitions (parameter, escape, unary run, LSBs), escaped raw
-// samples and verbatim samples. The scan's batch axis becomes threads: one
-// thread per frame, which keeps the scan's step structure exactly, because
-// `ovf` decides which frames go to the host decoder and must equal
-// flac_tpu's on every frame:
-//   - U=4 samples a step from a 256-bit window of 8 uint32 limbs held in
-//     registers and carried across steps; one window slide per sample;
-//   - up to 3 word refills at the end of each step;
-//   - ovf on a unary run of >= 48 zeros, a Rice fold q * 2^k >= 2^30, or a
-//     step that spends more bits than its window held.
-// All arithmetic is int32/uint32 as in flac_tpu; every 32-bit shift amount
-// stays in [0, 31] (frame_decoder.py:177-179 masks with & 31 for the same
-// reason), the funnel shifts are __funnelshift_l and the unary run __clz.
+// Replaces two pieces of flac_tpu/decode/frame_decoder.py:
+//   - _decode_subframe's parse (:409-456): the header byte, the wasted-bits
+//     unary run (a device while_loop, :94-118), the constant, the warmup,
+//     LPC precision, shift and coefficients, and the entropy-coding header;
+//   - _narrow_residual_scan (:130-293, the lax.scan at :290-291): Rice
+//     partitions (parameter, escape, unary run, LSBs), escaped raw samples
+//     and verbatim samples.
+// The batch axis becomes threads, one a frame. Every output equals
+// flac_tpu's, the flagged frames' included, because `ovf` decides which
+// frames go to the host decoder:
+//   - the parse reads as flac_tpu's _read_bits does: a read of n <= 0 bits
+//     gives 0 and still moves the position by n, so a wasted run longer
+//     than the sample width makes `ebps`, and then the position, negative;
+//     word indices follow flac_tpu's words[min(i, n - 1)] (word_index);
+//   - the scan keeps its step structure: U=4 samples a step from a 256-bit
+//     window of 8 uint32 limbs in registers, one window slide per sample,
+//     up to 3 word refills at the end of each step, and the three guards
+//     (a unary run of >= 48 zeros, a Rice fold q * 2^k >= 2^30, a step that
+//     spends more bits than its window held).
+// All scan arithmetic is int32/uint32 as in flac_tpu; every 32-bit shift
+// amount stays in [0, 31]; the funnel shifts are __funnelshift_l and the
+// unary runs __clz.
 //
-// Bound: memory in principle (the batch's subframe bits read once, res
-// written once), but each thread is one serial chain of T/4 dependent steps,
-// so the kernel sits far above that bound: latency, not bytes, sets its
-// time. Blocks of 32 threads spread the B chains over as many SMs as
-// possible; at B=512 there are only 512 chains for 132 SMs.
+// Bound: bytes in principle (the subframes' bits read once, res written
+// once: 0.0033 ms for 512 frames of 4096 samples on an H100), but each
+// thread is one serial chain of T/4 dependent steps, so the chain's length
+// sets the time. The design shortens the chain:
+//   - the window stays in registers: every limb update is a select, never
+//     a conditional store to one limb, which the compiler would turn into a
+//     store at a computed index and so move the whole window to local
+//     memory;
+//   - the refills never wait on device memory. A step takes at most 3
+//     words and every lane runs exactly ceil(T/4) steps, so each lane
+//     stages its next words into its own ring in shared memory with
+//     cp.async, a chunk of 8 steps (24 words) ahead, double-buffered; the
+//     step's words are read from shared memory when it begins, and its
+//     refills are one insert of up to 3 words as a 96-bit value;
+//   - the partition boundary test keeps t mod ps as a counter instead of
+//     dividing once a sample;
+//   - the 4 samples of a step are stored as one 16-byte write when T is a
+//     multiple of 4.
+// The header parse (a few dozen dependent reads a subframe) reads device
+// memory directly: it is short beside the scan, and it replaces about a
+// thousand eager launches and a host synchronisation a channel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kU = 4;      // samples per step
-constexpr int kNload = 3;  // word refills per step
-constexpr int kLimbs = 8;  // 32-bit limbs of the window
+constexpr int kU = 4;           // samples per step
+constexpr int kNload = 3;       // word refills per step
+constexpr int kLimbs = 8;       // 32-bit limbs of the window
+constexpr int kWarp = 32;       // threads a block: one warp, one frame a lane
+constexpr int kChunkSteps = 8;  // steps between two stagings
+constexpr int kChunkWords = kNload * kChunkSteps;
+constexpr int kRing = 64;       // staged words a lane (a power of two)
+static_assert(kRing >= 2 * kChunkWords && (kRing & (kRing - 1)) == 0,
+              "the ring holds the chunk being read and the one in flight");
+
+struct SubOut {  // read_subframe_header's fields, in its dtypes
+  int64_t* pos;
+  uint8_t *is_const, *is_verb, *is_fixed, *is_lpc, *is_coded;
+  int64_t *order, *wasted, *ebps, *cval, *warm, *shift, *qlp, *plen, *pesc, *ps;
+};
+
+// the word flac_tpu's words[jnp.minimum(i, n - 1)] reads: a negative index
+// wraps once (i + n), is cut to int32, then clamped to [0, n - 1]
+__device__ __forceinline__ int64_t word_index(int64_t i, int64_t n) {
+  int64_t j = i < n - 1 ? i : n - 1;
+  if (j < 0) j += n;
+  const int64_t k = (int32_t)(uint32_t)(uint64_t)j;
+  return k < 0 ? 0 : (k > n - 1 ? n - 1 : k);
+}
+
+// the next 32 bits at bit position pos, MSB-aligned (flac_tpu's _peek32)
+__device__ __forceinline__ uint32_t peek32(const uint32_t* __restrict__ words,
+                                           int64_t nw, int64_t pos) {
+  const int64_t wi = pos >> 5;
+  const uint32_t w0 = __ldg(words + word_index(wi, nw));
+  const uint32_t w1 = __ldg(words + word_index(wi + 1, nw));
+  return __funnelshift_l(w1, w0, (unsigned)(pos & 31));
+}
+
+// flac_tpu's _read_bits: n (<= 32) bits as an unsigned value, 0 for n <= 0;
+// the position moves by n either way
+__device__ __forceinline__ int64_t read_bits(const uint32_t* __restrict__ words,
+                                             int64_t nw, int64_t& pos, int64_t n) {
+  const int64_t v = n > 0 ? (int64_t)(peek32(words, nw, pos) >> (32 - n)) : 0;
+  pos += n;
+  return v;
+}
+
+__device__ __forceinline__ int64_t sign_extend(int64_t v, int64_t n) {
+  return (n > 0 && v >= (int64_t(1) << (n - 1))) ? v - (int64_t(1) << n) : v;
+}
 
 // bits [r, r + 32) of the 64-bit a:b, r in [0, 32)
 __device__ __forceinline__ uint32_t funnel(uint32_t a, uint32_t b, int r) {
@@ -44,29 +111,102 @@ __device__ __forceinline__ int32_t se32(uint32_t v, int32_t n) {
   return (int32_t)(v << sh) >> sh;
 }
 
-__global__ void __launch_bounds__(32) residual_scan_kernel(
-    const uint32_t* __restrict__ words, int64_t nwords,
-    const int64_t* __restrict__ pos_in, const uint8_t* __restrict__ coded_in,
-    const uint8_t* __restrict__ verb_in, const int64_t* __restrict__ ebps_in,
-    const int64_t* __restrict__ order_in, const int64_t* __restrict__ plen_in,
-    const int64_t* __restrict__ pesc_in, const int64_t* __restrict__ ps_in,
-    int32_t* __restrict__ res, int64_t* __restrict__ pos_out,
-    uint8_t* __restrict__ ovf_out, int32_t B, int32_t T) {
-  const int32_t b = blockIdx.x * blockDim.x + threadIdx.x;
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
+    const uint32_t* __restrict__ words, int64_t nw,
+    const int64_t* __restrict__ pos_in, const int64_t* __restrict__ cbps_in,
+    SubOut out, int32_t* __restrict__ res, int64_t* __restrict__ pos_out,
+    uint8_t* __restrict__ ovf_out, int32_t B, int32_t T, int32_t maxord) {
+  __shared__ uint32_t ring[kRing * kWarp];  // slot s of lane l at s * 32 + l
+  const int lane = threadIdx.x;
+  const int32_t b = blockIdx.x * kWarp + lane;
   if (b >= B) return;
-  auto gw = [&](int32_t i) -> uint32_t {
-    int64_t j = i;
-    j = j < 0 ? 0 : (j > nwords - 1 ? nwords - 1 : j);
-    return words[j];
-  };
-  const bool is_coded = coded_in[b] != 0;
-  const bool is_verb = verb_in[b] != 0;
-  const int32_t ebps = (int32_t)ebps_in[b];
-  const int32_t order = (int32_t)order_in[b];
-  const int32_t plen = (int32_t)plen_in[b];
-  const int32_t pesc = (int32_t)pesc_in[b];
-  const int32_t ps = (int32_t)ps_in[b];
+
+  // ---- the subframe header (flac_tpu's _decode_subframe, :411-456) -------
   int64_t pos = pos_in[b];
+  const int64_t hdr = read_bits(words, nw, pos, 8);
+  const int64_t stype = (hdr >> 1) & 0x3F;
+  int64_t wasted = 0;
+  if (hdr & 1) {
+    // the wasted-bits unary run, bounded at the end of the word buffer
+    const int64_t limit = nw * 32;
+    int64_t q = 0;
+    for (;;) {
+      const uint32_t top = peek32(words, nw, pos);
+      if (top != 0u) {
+        const int z = __clz(top);
+        q += z;
+        pos += z + 1;
+        break;
+      }
+      q += 32;
+      pos += 32;
+      if (pos >= limit) break;
+    }
+    wasted = q + 1;
+  }
+  const int64_t ebps = cbps_in[b] - wasted;
+  const bool is_const = stype == 0;
+  const bool is_verb = stype == 1;
+  const bool is_fixed = (stype >> 3) == 1;
+  const bool is_lpc = (stype >> 5) == 1;
+  const bool is_coded = is_fixed || is_lpc;
+  const int64_t order = is_fixed ? (stype & 7) : (is_lpc ? (stype & 31) + 1 : 0);
+  const int64_t nconst = is_const ? ebps : 0;
+  const int64_t cval = sign_extend(read_bits(words, nw, pos, nconst), nconst);
+  int64_t* warm = out.warm + (int64_t)b * maxord;
+  for (int32_t j = 0; j < maxord; ++j) {
+    const int64_t nb = (is_coded && j < order) ? ebps : 0;
+    warm[j] = sign_extend(read_bits(words, nw, pos, nb), nb);
+  }
+  const int64_t prec = is_lpc ? read_bits(words, nw, pos, 4) + 1 : 0;
+  const int64_t nshift = is_lpc ? 5 : 0;
+  const int64_t shift = sign_extend(read_bits(words, nw, pos, nshift), nshift);
+  int64_t* qlp = out.qlp + (int64_t)b * maxord;
+  for (int32_t j = 0; j < maxord; ++j) {
+    const int64_t nb = (is_lpc && j < order) ? prec : 0;
+    qlp[j] = sign_extend(read_bits(words, nw, pos, nb), nb);
+  }
+  const int64_t ev = read_bits(words, nw, pos, is_coded ? 6 : 0);
+  const bool rice2 = ((ev >> 4) & 3) == 1;
+  const int64_t ps64 = is_coded ? ((int64_t)T >> (ev & 15)) : T;
+  out.pos[b] = pos;
+  out.is_const[b] = is_const;
+  out.is_verb[b] = is_verb;
+  out.is_fixed[b] = is_fixed;
+  out.is_lpc[b] = is_lpc;
+  out.is_coded[b] = is_coded;
+  out.order[b] = order;
+  out.wasted[b] = wasted;
+  out.ebps[b] = ebps;
+  out.cval[b] = cval;
+  out.shift[b] = shift;
+  out.plen[b] = rice2 ? 5 : 4;
+  out.pesc[b] = rice2 ? 31 : 15;
+  out.ps[b] = ps64;
+
+  // ---- the residual/verbatim scan (flac_tpu's _narrow_residual_scan) -----
+  const int32_t ebps32 = (int32_t)ebps;
+  const int32_t order32 = (int32_t)order;
+  const int32_t plen = rice2 ? 5 : 4;
+  const int32_t pesc = rice2 ? 31 : 15;
+  // t mod 0 is 0, as flac_tpu's jnp.mod gives it: a zero partition size
+  // (a corrupt header's) reads a parameter every sample, as a size of 1 does
+  const int32_t ps = ps64 == 0 ? 1 : (int32_t)ps64;
 
   // initial fill: 9 words -> 8 limbs, MSB-aligned at pos
   const int32_t wi0 = (int32_t)(pos >> 5);
@@ -75,23 +215,47 @@ __global__ void __launch_bounds__(32) residual_scan_kernel(
   {
     uint32_t a[kLimbs + 1];
 #pragma unroll
-    for (int j = 0; j <= kLimbs; ++j) a[j] = gw(wi0 + j);
+    for (int j = 0; j <= kLimbs; ++j) a[j] = __ldg(words + word_index(wi0 + j, nw));
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) w[j] = funnel(a[j], a[j + 1], off);
   }
   int32_t navail = 256 - off;
   int32_t wpos = wi0 + kLimbs;
   int32_t k = 0, rawlen = 0;
+  int32_t tmod = 0;  // t mod ps
   bool ovf = false;
   int32_t* row = res + (int64_t)b * T;
+  const bool vec4 = (T & (kU - 1)) == 0;
 
-  for (int32_t t0 = 0; t0 < T; t0 += kU) {
+  // the lane's ring: word i of the stream sits in slot i & (kRing - 1)
+  uint32_t* col = ring + lane;
+  int32_t staged = wpos;  // the next word index to stage
+  auto stage_to = [&](int32_t end) {
+    for (; staged < end; ++staged)
+      cp_async4(col + (staged & (kRing - 1)) * kWarp, words + word_index(staged, nw));
+    cp_async_commit();
+  };
+  stage_to(wpos + kChunkWords);
+
+  for (int32_t t0 = 0, step = 0; t0 < T; t0 += kU, ++step) {
+    if (step % kChunkSteps == 0) {
+      // words [wpos, wpos + 24) were staged a chunk ago; stage the next 24
+      stage_to(wpos + 2 * kChunkWords);
+      cp_async_wait<1>();
+    }
+    // this step's refill words, read before the samples need them
+    uint32_t refill[kNload];
+#pragma unroll
+    for (int l = 0; l < kNload; ++l) refill[l] = col[((wpos + l) & (kRing - 1)) * kWarp];
     int32_t spent = 0;
+    int32_t outs[kU];
 #pragma unroll
     for (int32_t jj = 0; jj < kU; ++jj) {
       const int32_t t = t0 + jj;
+      outs[jj] = 0;
       if (t < T) {  // a sample past T reads nothing and slides by 0
-        const bool boundary = is_coded && (ps == 0 ? t : t % ps) == 0;
+        const bool boundary = is_coded && tmod == 0;
+        tmod = tmod + 1 == ps ? 0 : tmod + 1;
         // partition parameter: always at window offset 0
         const int32_t nb = boundary ? plen : 0;
         const int32_t pv = nb > 0 ? (int32_t)(w[0] >> ((32 - nb) & 31)) : 0;
@@ -102,7 +266,7 @@ __global__ void __launch_bounds__(32) residual_scan_kernel(
         if (isesc_b) rawlen = (int32_t)(funnel(w[0], w[1], o) >> 27);
         o += isesc_b ? 5 : 0;
         const bool esc = k == pesc;
-        const bool in_res = is_coded && t >= order;
+        const bool in_res = is_coded && t >= order32;
         const bool rice_on = in_res && !esc;
         // unary run: clz over the 64 bits at offset o (o <= 10)
         const uint32_t u1 = funnel(w[0], w[1], o);
@@ -128,13 +292,14 @@ __global__ void __launch_bounds__(32) residual_scan_kernel(
         const uint32_t rvu = nbr > 0 ? top_r >> ((32 - nbr) & 31) : 0u;
         const int32_t raw_val = se32(rvu, nbr);
         o += nbr;
-        // verbatim: ebps bits at offset 0
-        const int32_t nbv = is_verb ? ebps : 0;
+        // verbatim: ebps bits at offset 0 (a negative ebps reads nothing
+        // and moves the window back, as in flac_tpu)
+        const int32_t nbv = is_verb ? ebps32 : 0;
         const uint32_t vv = nbv > 0 ? w[0] >> ((32 - nbv) & 31) : 0u;
         const int32_t verb_val = se32(vv, nbv);
         o += nbv;
-        row[t] = rice_on ? rice_val
-                 : (in_res && esc) ? raw_val : (is_verb ? verb_val : 0);
+        outs[jj] = rice_on ? rice_val
+                   : (in_res && esc) ? raw_val : (is_verb ? verb_val : 0);
         // one window slide by o (<= 88 bits): 3-way limb select
         const int32_t jsel = o >> 5;
         const int rs = o & 31;
@@ -148,56 +313,77 @@ __global__ void __launch_bounds__(32) residual_scan_kernel(
         spent += o;
       }
     }
+    if (vec4) {
+      *reinterpret_cast<int4*>(row + t0) = make_int4(outs[0], outs[1], outs[2], outs[3]);
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < kU; ++jj)
+        if (t0 + jj < T) row[t0 + jj] = outs[jj];
+    }
     // all consumed bits must have been inside the valid window
     if (spent > navail) ovf = true;
     navail = max(navail - spent, 0);
-    // refill: insert up to kNload words at bit offset navail
-#pragma unroll
-    for (int l = 0; l < kNload; ++l) {
-      const bool can = navail <= 256 - 32;
-      const uint32_t wv = can ? gw(wpos) : 0u;
+    // refill: insert up to kNload words at bit offset navail. Refill l can
+    // while navail + 32 l <= 224 and then takes word wpos + l, so the step
+    // inserts its first `cnt` staged words at once, as the 96-bit value
+    // v0:v1:v2 shifted right by navail: limb jw + k of the window takes
+    // limb k of (v0:v1:v2) >> rw. Every limb is updated with a select:
+    // conditional updates of w[i] for one i would let the compiler turn
+    // them into a store at a computed index, which puts the whole window
+    // in local memory.
+    const int32_t cnt = navail > 256 - 32 ? 0 : min(kNload, ((256 - 32 - navail) >> 5) + 1);
+    {
+      const uint32_t v0 = cnt > 0 ? refill[0] : 0u;
+      const uint32_t v1 = cnt > 1 ? refill[1] : 0u;
+      const uint32_t v2 = cnt > 2 ? refill[2] : 0u;
       const int32_t jw = navail >> 5;
-      const int rw = navail & 31;
-      const uint32_t p0 = wv >> rw;
-      const uint32_t p1 = rw > 0 ? wv << ((32 - rw) & 31) : 0u;
+      const unsigned rw = navail & 31;
+      const uint32_t e0 = __funnelshift_r(v0, 0u, rw);
+      const uint32_t e1 = __funnelshift_r(v1, v0, rw);
+      const uint32_t e2 = __funnelshift_r(v2, v1, rw);
+      const uint32_t e3 = __funnelshift_r(0u, v2, rw);
 #pragma unroll
       for (int i = 0; i < kLimbs; ++i) {
-        if (can && jw == i) w[i] |= p0;
-        if (can && jw + 1 == i) w[i] |= p1;
-      }
-      if (can) {
-        navail += 32;
-        wpos += 1;
+        const int32_t d = i - jw;
+        w[i] |= d == 0 ? e0 : (d == 1 ? e1 : (d == 2 ? e2 : (d == 3 ? e3 : 0u)));
       }
     }
+    navail += 32 * cnt;
+    wpos += cnt;
     pos += spent;
   }
+  cp_async_wait<0>();  // no copy may land after the block has gone
   pos_out[b] = pos;
   ovf_out[b] = ovf ? 1 : 0;
 }
 
 }  // namespace
 
-// words int32 [nwords] (the stream, big-endian bit order); per frame (all
-// [B]): pos int64, is_coded / is_verb bool, ebps / order / plen / pesc / ps
-// int64. Writes res int32 [B, T], pos_out int64 [B], ovf bool [B]. Launches
-// on `stream`; returns cudaGetLastError().
-extern "C" int flac_residual_scan(const void* words, int64_t nwords,
-                                  const void* pos, const void* is_coded,
-                                  const void* is_verb, const void* ebps,
-                                  const void* order, const void* plen,
-                                  const void* pesc, const void* ps, void* res,
-                                  void* pos_out, void* ovf, int32_t batch,
-                                  int32_t T, void* stream) {
+// words int32 [nwords] (the stream, big-endian bit order); pos, cbps int64
+// [B] (each frame's first subframe-header bit and sample width). Writes
+// read_subframe_header's fields (`sub`: pos, is_const, is_verb, is_fixed,
+// is_lpc, is_coded as bool [B]; order, wasted, ebps, cval, shift, plen,
+// pesc, ps as int64 [B]; warm, qlp as int64 [B, maxord]), res int32 [B, T],
+// pos_out int64 [B] (after the samples) and ovf bool [B]. Launches on
+// `stream`; returns cudaGetLastError().
+extern "C" int flac_subframe_scan(
+    const void* words, int64_t nwords, const void* pos, const void* cbps,
+    void* sub_pos, void* is_const, void* is_verb, void* is_fixed, void* is_lpc,
+    void* is_coded, void* order, void* wasted, void* ebps, void* cval, void* warm,
+    void* shift, void* qlp, void* plen, void* pesc, void* ps, void* res,
+    void* pos_out, void* ovf, int32_t batch, int32_t T, int32_t maxord,
+    void* stream) {
   if (batch > 0 && nwords > 0) {
-    const int threads = 32;
-    const int blocks = (batch + threads - 1) / threads;
-    residual_scan_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)words, nwords, (const int64_t*)pos,
-        (const uint8_t*)is_coded, (const uint8_t*)is_verb,
-        (const int64_t*)ebps, (const int64_t*)order, (const int64_t*)plen,
-        (const int64_t*)pesc, (const int64_t*)ps, (int32_t*)res,
-        (int64_t*)pos_out, (uint8_t*)ovf, batch, T);
+    SubOut out{(int64_t*)sub_pos, (uint8_t*)is_const, (uint8_t*)is_verb,
+               (uint8_t*)is_fixed, (uint8_t*)is_lpc,  (uint8_t*)is_coded,
+               (int64_t*)order,    (int64_t*)wasted,  (int64_t*)ebps,
+               (int64_t*)cval,     (int64_t*)warm,    (int64_t*)shift,
+               (int64_t*)qlp,      (int64_t*)plen,    (int64_t*)pesc,
+               (int64_t*)ps};
+    const int blocks = (batch + kWarp - 1) / kWarp;
+    subframe_scan_kernel<<<blocks, kWarp, 0, (cudaStream_t)stream>>>(
+        (const uint32_t*)words, nwords, (const int64_t*)pos, (const int64_t*)cbps,
+        out, (int32_t*)res, (int64_t*)pos_out, (uint8_t*)ovf, batch, T, maxord);
   }
   return (int)cudaGetLastError();
 }

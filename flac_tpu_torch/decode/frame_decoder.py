@@ -4,19 +4,22 @@ flac_tpu.decode.frame_decoder.
 Decodes B equal-geometry frames at once: the reference's bit-serial reader
 loops (bitreader.c:775 Rice block read, stream_decoder.c:1996-2776 frame and
 subframe parsing) become batched bit-window reads over one flat word array.
-The header and subframe-header reads are eager tensor ops over the batch;
-the two sample loops, flac_tpu's `lax.scan`s, are hand-written CUDA kernels
-on a GPU:
+The frame header is read by eager tensor ops over the batch; each subframe
+is two hand-written CUDA kernels on a GPU:
 
-- the residual/verbatim window scan (`narrow_residual_scan_kernel`,
-  csrc/residual_scan.cu), the port of `_narrow_residual_scan`;
+- the subframe scan (`subframe_scan_kernel`, csrc/residual_scan.cu): the
+  subframe-header parse and the residual/verbatim window scan in one launch
+  per channel, the port of `_decode_subframe`'s parse and
+  `_narrow_residual_scan`;
 - the fixed/LPC restore (`restore_scan_kernel`, csrc/restore_scan.cu), the
-  port of `_restore_scan`.
+  port of `_restore_scan`, one launch over every channel's rows.
 
-Each has a plain PyTorch version here, which CPU tensors take and which the
-tests hold against flac_tpu. Frames the scan flags (`unary_overflow`) and
-variable-geometry frames (the stream's final partial frame) are the host
-decoder's; the stream layer (decode.stream) routes them there.
+Each has a plain PyTorch version here (`subframe_scan`, the composition of
+`read_subframe_header` and `narrow_residual_scan`; `restore_scan`), which
+CPU tensors take and which the tests hold against flac_tpu. Frames the scan
+flags (`unary_overflow`) and variable-geometry frames (the stream's final
+partial frame) are the host decoder's; the stream layer (decode.stream)
+routes them there.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
 the wide scan for streams of more than 26 bits, and per-frame header widths
@@ -108,13 +111,21 @@ def _use_narrow_scan(geom: DecoderGeometry) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _word_index(i: torch.Tensor, n: int) -> torch.Tensor:
+    """The word flac_tpu's `words[jnp.minimum(i, n - 1)]` reads: a negative
+    index wraps once (i + n), is cut to int32, then clamped to [0, n - 1]
+    (JAX's gather). Corrupt subframes reach negative bit positions."""
+    j = torch.clamp(i, max=n - 1)
+    return torch.clamp(_wrap32(torch.where(j < 0, j + n, j)), 0, n - 1)
+
+
 def _peek32(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     """Next 32 bits at bit position `pos`, MSB-aligned, as int64 in [0, 2^32)."""
     wi = pos >> 5
     off = pos & 31
     n = words.shape[0]
-    w0 = words[torch.clamp(wi, max=n - 1)].to(_I64) & _MASK32
-    w1 = words[torch.clamp(wi + 1, max=n - 1)].to(_I64) & _MASK32
+    w0 = words[_word_index(wi, n)].to(_I64) & _MASK32
+    w1 = words[_word_index(wi + 1, n)].to(_I64) & _MASK32
     return torch.where(off > 0, ((w0 << off) | (w1 >> (32 - off))) & _MASK32, w0)
 
 
@@ -152,8 +163,10 @@ def _read_unary(words, pos):
     """Batched unary read: count zero bits to the stop bit (can exceed 32).
     Bounded at the end of the word buffer: a lane that runs into the zero
     padding past the stream stops there (the caller's frame-length check
-    flags it). flac_tpu's while_loop is a Python loop that syncs once a
-    round; it usually takes one round."""
+    flags it). flac_tpu's `lax.while_loop` runs on the device; here it is a
+    Python loop that syncs once a round (it usually takes one), which only
+    CPU tensors take: on a GPU the subframe-scan kernel reads the run
+    itself."""
     limit = words.shape[0] * 32
     q = torch.zeros_like(pos)
     done = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
@@ -214,7 +227,7 @@ def narrow_residual_scan(words, pos, T, is_coded, is_verb, ebps, order,
     limb = torch.arange(L, device=dev)
 
     def gw(i):
-        return words[torch.clamp(i, max=n - 1)].to(_I64) & _MASK32
+        return words[_word_index(i, n)].to(_I64) & _MASK32
 
     def funnel(a, b, r):
         """Bits [r, r+32) of the 64-bit a:b, r in [0, 32)."""
@@ -231,15 +244,15 @@ def narrow_residual_scan(words, pos, T, is_coded, is_verb, ebps, order,
     wpos = wi0 + L
     zero = torch.zeros_like(pos)
     k, rawlen, ovf = zero, zero, zero != 0
+    # t mod 0 is 0, as flac_tpu's jnp.mod gives it (so a zero partition
+    # size, possible on corrupt headers, reads a parameter every sample)
     ps_safe = torch.where(ps == 0, 1, ps)
     outs = []
     for t0 in range(0, T, SCAN_U):
         spent = zero
         for t in range(t0, min(t0 + SCAN_U, T)):
             w0, w1, w2 = win[:, 0], win[:, 1], win[:, 2]
-            # t mod 0 is t, as XLA's integer remainder gives it
-            tmod = torch.where(ps == 0, t, t % ps_safe)
-            boundary = is_coded & (tmod == 0)
+            boundary = is_coded & (t % ps_safe == 0)
             # partition parameter: always at window offset 0
             nb = torch.where(boundary, plen, 0)
             pv = torch.where(nb > 0, w0 >> ((32 - nb) & 31), 0)
@@ -315,19 +328,6 @@ def narrow_residual_scan(words, pos, T, is_coded, is_verb, ebps, order,
         pos = pos + spent
     res = torch.stack(outs, dim=1).to(_I32)
     return res, pos, ovf
-
-
-def narrow_residual_scan_kernel(words, pos, T, is_coded, is_verb, ebps, order,
-                                plen, pesc, ps):
-    """narrow_residual_scan with the scan done by the hand-written CUDA
-    kernel (kernels.residual_scan) — the counterpart of flac_tpu's
-    `_narrow_residual_scan`. CUDA tensors launch the kernel (a failure
-    raises); CPU tensors take the plain version."""
-    if pos.device.type == "cpu":
-        return narrow_residual_scan(words, pos, T, is_coded, is_verb, ebps,
-                                    order, plen, pesc, ps)
-    return _residual_scan.residual_scan(words, pos, T, is_coded, is_verb, ebps,
-                                        order, plen, pesc, ps)
 
 
 # ---------------------------------------------------------------------------
@@ -476,20 +476,41 @@ def restore_inputs(sub: dict, maxord: int):
     return coeffs, sub["order"], rshift, sub["warm"], sub["is_coded"]
 
 
-def decode_subframe(words, pos, cbps, T: int, maxord: int):
-    """One subframe of every frame: (x [B, T] int64, pos, wasted, type
-    (0 constant, 1 verbatim, 2 fixed, 3 LPC), order [B] int32, ovf [B])."""
+def subframe_scan(words, pos, cbps, T: int, maxord: int):
+    """The plain subframe scan of every frame: `read_subframe_header` at
+    `pos`, then `narrow_residual_scan` from the header's end. Returns (sub,
+    res [B, T] int32, pos [B] int64 after the samples, ovf [B] bool); `sub`
+    is read_subframe_header's dict."""
     sub = read_subframe_header(words, pos, cbps, T, maxord)
-    res, pos, ovf = narrow_residual_scan_kernel(
+    res, pos, ovf = narrow_residual_scan(
         words, sub["pos"], T, sub["is_coded"], sub["is_verb"], sub["ebps"],
         sub["order"], sub["plen"], sub["pesc"], sub["ps"])
-    x = restore_scan_kernel(res, *restore_inputs(sub, maxord), T, maxord)
+    return sub, res, pos, ovf
+
+
+def subframe_scan_kernel(words, pos, cbps, T: int, maxord: int):
+    """subframe_scan done by the hand-written CUDA kernel
+    (kernels.residual_scan), which parses the subframe header and scans
+    the samples in one launch — the counterpart of flac_tpu's
+    `_decode_subframe` parse and `_narrow_residual_scan`. CUDA tensors
+    launch the kernel (a failure raises); CPU tensors take the plain
+    version."""
+    if pos.device.type == "cpu":
+        return subframe_scan(words, pos, cbps, T, maxord)
+    return _residual_scan.subframe_scan(words, pos, cbps, T, maxord)
+
+
+def finish_subframe(sub: dict, res, x):
+    """A channel's samples from its restore `x`: the constant and verbatim
+    subframes replace it, then the wasted bits shift back in. Returns (x [B,
+    T] int64, wasted, type (0 constant, 1 verbatim, 2 fixed, 3 LPC), order,
+    all [B] int32)."""
     x = torch.where(sub["is_const"][:, None], sub["cval"][:, None], x)
     x = torch.where(sub["is_verb"][:, None], res.to(_I64), x)
     x = x << sub["wasted"][:, None]
     stype = torch.where(sub["is_const"], 0, torch.where(
         sub["is_verb"], 1, torch.where(sub["is_fixed"], 2, 3))).to(_I32)
-    return (x, pos, sub["wasted"].to(_I32), stype, sub["order"].to(_I32), ovf)
+    return x, sub["wasted"].to(_I32), stype, sub["order"].to(_I32)
 
 
 def build_frame_decoder(geom: DecoderGeometry,
@@ -522,16 +543,21 @@ def _build_frame_decoder(geom: DecoderGeometry, device: torch.device):
         words = torch.as_tensor(words, dtype=_I32, device=device)
         pos = torch.as_tensor(start_bits, device=device).to(_I64)
         pos, assignment, sync_ok = read_frame_header(words, pos, ext_bits, Ch)
-        chans, wasteds, types, orders = [], [], [], []
+        # a channel's subframe starts where the previous one ends, so the
+        # scans run in turn; the restore then runs once on all their rows
+        subs, ress = [], []
         any_ovf = torch.zeros(pos.shape, dtype=torch.bool, device=device)
         for c in range(Ch):
             cbps = side_channel_bps(assignment, c, bps, Ch)
-            x, pos, w, st, so, ovf = decode_subframe(words, pos, cbps, T, maxord)
+            sub, res, pos, ovf = subframe_scan_kernel(words, pos, cbps, T, maxord)
             any_ovf = any_ovf | ovf
-            chans.append(x)
-            wasteds.append(w)
-            types.append(st)
-            orders.append(so)
+            subs.append(sub)
+            ress.append(res)
+        rin = [torch.cat(parts) for parts in
+               zip(*(restore_inputs(sub, maxord) for sub in subs))]
+        xs = restore_scan_kernel(torch.cat(ress), *rin, T, maxord).chunk(Ch)
+        chans, wasteds, types, orders = zip(*(
+            finish_subframe(sub, res, x) for sub, res, x in zip(subs, ress, xs)))
         # byte-align, then the frame's CRC-16 (checked by the stream layer)
         pos = ((pos + 7) & ~7) + 16
         if Ch == 2:

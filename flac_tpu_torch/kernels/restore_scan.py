@@ -31,7 +31,8 @@ def restore_scan(res, coeffs, order, shift, warm, is_coded, T, maxord):
     """x [B, T] int64 of the restore recurrence; the arguments as
     frame_decoder.restore_scan takes them (res [B, T] int32; coeffs, warm
     [B, maxord] int64; order, shift [B] int64; is_coded [B] bool), all on
-    one CUDA device."""
+    one CUDA device. The rows are independent: the frame decoder stacks
+    every channel's into one launch."""
     global launches
     dev = res.device
     if dev.type != "cuda":

@@ -6,9 +6,11 @@ stereo, 16-bit, max_lpc_order=12) with several signals through it (one
 compile on the flac_tpu side), and on a 24-bit stream whose Rice outliers
 trip the scan's guards, frame by frame. The plain residual scan is held
 against `_narrow_residual_scan` on hand-made bit strings at its guards, the
-plain restore against the host decoder's restores. Equality throughout:
-every output is an integer. The CUDA kernels are held against the plain
-versions on the card (`-m cuda`, and chip_smoke.py).
+plain restore against the host decoder's restores. Corrupt frames (random
+words, wasted-bit runs longer than the sample width, negative bit
+positions) decode alike too. Equality throughout: every output is an
+integer. The CUDA kernels are held against the plain versions on the card
+(`-m cuda`, and chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from flac_tpu.encode import encoder as j_enc
 from flac_tpu.metadata import parse_metadata
 from flac_tpu_torch.decode import frame_decoder as t_fd
 from flac_tpu_torch.kernels import residual_scan, restore_scan
+from flac_tpu_torch.kernels.residual_scan import SUBFRAME_FIELDS
 
 T = 1024
 GEOM = dict(blocksize=T, channels=2, bits_per_sample=16, sample_rate=44100,
@@ -87,6 +90,103 @@ def test_frame_decoder_24bit_outliers_overflow_alike(tmp_path):
         np.testing.assert_array_equal(tm[k], jm[k], err_msg=k)
 
 
+def _put_bits(words: np.ndarray, at: int, bits: str) -> None:
+    """Overwrite the bits [at, at + len(bits)) of a big-endian word array."""
+    u = words.view(np.uint32)
+    for i, ch in enumerate(bits):
+        wi, sh = divmod(at + i, 32)
+        mask = np.uint32(1 << (31 - sh))
+        u[wi] = (u[wi] | mask) if ch == "1" else (u[wi] & ~mask)
+
+
+def corrupt_frames(seed: int = 21, nwords: int = 4096):
+    """Random words and 4 frame starts (the word count and batch of the
+    signal cases above, so flac_tpu's decoder is not compiled again). Two
+    starts hold a subframe whose wasted-bits run is longer than the sample
+    width: a FIXED order-4 one near the stream's start, whose warmup reads
+    move the position back below 0 (word indices that wrap once), and a
+    VERBATIM one whose samples move it far below (indices clamped to 0)."""
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 1 << 32, nwords, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    # frame header: 32 bits, a one-byte frame number, no extension fields
+    # at T=1024 / 44.1 kHz, the CRC-8; subframe 0 starts 48 bits in
+    starts = [64, int(rng.integers(1000, 40000)), int(rng.integers(40000, 80000)),
+              int(rng.integers(80000, 120000))]
+    _put_bits(words, starts[0] + 32, "00000000")
+    _put_bits(words, starts[0] + 48, "00011001" + "0" * 100 + "1")   # FIXED 4, wasted
+    _put_bits(words, starts[3] + 32, "00000000")
+    _put_bits(words, starts[3] + 48, "00000011" + "0" * 300 + "1")   # VERBATIM, wasted
+    return words, np.array(starts, np.int64)
+
+
+def test_frame_decoder_matches_flac_tpu_on_corrupt_frames():
+    words, starts = corrupt_frames()
+    jp, je, jm, tp, te, tm = _decode_both(words, starts, **GEOM)
+    assert (jm["wasted"] > 17).any() and (je < 0).any()  # the edges were reached
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(te, je)
+    for k in jm:
+        np.testing.assert_array_equal(tm[k], jm[k], err_msg=k)
+
+
+def test_word_reads_at_negative_positions_match_flac_tpu():
+    """flac_tpu's words[min(i, n - 1)] wraps a negative index once and
+    clamps what stays below 0; torch indexing would raise."""
+    words = np.arange(1, 65, dtype=np.int32) * 0x01010101
+    n = len(words) * 32
+    pos = np.array([-1, -5, -31, -32, -33, -n + 3, -n, -n - 1, -10 * n - 7,
+                    -(1 << 36) - 5, 0, 17, n - 40, n + 9], np.int64)
+    jt = j_fd._peek32(jnp.asarray(words), jnp.asarray(pos))
+    tt = t_fd._peek32(torch.as_tensor(words), torch.as_tensor(pos))
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+
+
+def test_subframe_scan_wrapper_on_cpu_is_the_plain_composition():
+    """CPU tensors give read_subframe_header + narrow_residual_scan, field
+    by field, in the fields, dtypes and shapes the kernel's launcher
+    allocates; no launch is counted."""
+    words, starts = corrupt_frames()
+    words = torch.as_tensor(words)
+    geom = t_fd.DecoderGeometry(**GEOM)
+    pos, assignment, _ = t_fd.read_frame_header(words, torch.as_tensor(starts),
+                                                geom.header_ext_bits, 2)
+    cbps = t_fd.side_channel_bps(assignment, 0, 16, 2)
+    before = residual_scan.launches
+    sub, res, end, ovf = t_fd.subframe_scan_kernel(words, pos, cbps, 64, 12)
+    assert residual_scan.launches == before
+    ref = t_fd.read_subframe_header(words, pos, cbps, 64, 12)
+    assert (ref["pos"] < 0).any()  # the FIXED frame's warmup reads went below 0
+    assert list(sub) == list(ref) == [name for name, _ in SUBFRAME_FIELDS]
+    for name, dtype in SUBFRAME_FIELDS:
+        assert sub[name].dtype == dtype, name
+        assert tuple(sub[name].shape) == ((4, 12) if name in ("warm", "qlp") else (4,))
+        assert torch.equal(sub[name], ref[name]), name
+    want = t_fd.narrow_residual_scan(words, ref["pos"], 64, ref["is_coded"],
+                                     ref["is_verb"], ref["ebps"], ref["order"],
+                                     ref["plen"], ref["pesc"], ref["ps"])
+    for got, exp in zip((res, end, ovf), want):
+        assert torch.equal(got, exp)
+
+
+def test_stacked_restore_equals_per_channel_restores():
+    """The frame decoder restores every channel's rows in one call."""
+    rng = np.random.default_rng(12)
+    B, n, maxord = 6, 48, 12
+
+    def rows():
+        order = torch.as_tensor(rng.integers(0, 13, B))
+        return (torch.as_tensor(rng.integers(-500, 500, (B, n)).astype(np.int32)),
+                torch.as_tensor(rng.integers(-60, 60, (B, maxord))), order,
+                torch.as_tensor(rng.integers(0, 9, B)),
+                torch.as_tensor(rng.integers(-900, 900, (B, maxord))),
+                torch.as_tensor(rng.random(B) < 0.8))
+
+    chans = [rows(), rows()]
+    stacked = t_fd.restore_scan_kernel(*[torch.cat(p) for p in zip(*chans)], n, maxord)
+    per = torch.cat([t_fd.restore_scan_kernel(*c, n, maxord) for c in chans])
+    assert torch.equal(stacked, per)
+
+
 def _bit_string_words(bits: str) -> np.ndarray:
     bits += "0" * ((-len(bits)) % 32)
     words = np.array([int(bits[i:i + 32], 2) for i in range(0, len(bits), 32)],
@@ -94,11 +194,15 @@ def _bit_string_words(bits: str) -> np.ndarray:
     return np.concatenate([words, np.zeros(16, np.int32)])
 
 
-def fold_guard_bit_strings(n: int = 8) -> dict:
+# a FIXED order-0 subframe header, then RICE2 with partition order 0
+GUARD_SUBFRAME_HEADER = "00010000" + "01" + "0000"
+
+
+def fold_guard_bit_strings(n: int = 8, prefix: str = "") -> dict:
     """RICE2 partitions of n samples with k=26 (the bit strings of
     tests/test_device_decoder.py::TestNarrowScan.test_fold_guard, plus a
-    unary run of 60 zeros): name -> words."""
-    k26 = format(26, "05b")
+    unary run of 60 zeros), each behind `prefix`: name -> words."""
+    k26 = prefix + format(26, "05b")
     tail = ("1" + "0" * 26) * (n - 1)     # q=0, lsb=0 codewords
     lsb = format(0x155AA55 & ((1 << 26) - 1), "026b")
     return {
@@ -215,33 +319,36 @@ def test_cuda_decode_kernels_match_plain_on_card(tmp_path):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     sig = make_signal(4 * T, 2, 16, kind="quiet", seed=13)
-    words, starts = _stream(tmp_path, sig, 16)
-    words = torch.as_tensor(words, device="cuda")
     geom = t_fd.DecoderGeometry(**GEOM)
-    pos, assignment, _ = t_fd.read_frame_header(
-        words, torch.as_tensor(starts, device="cuda"), geom.header_ext_bits, 2)
-    for c in range(2):
-        sub = t_fd.read_subframe_header(
-            words, pos, t_fd.side_channel_bps(assignment, c, 16, 2), T, 12)
-        args = (words, sub["pos"], T, sub["is_coded"], sub["is_verb"], sub["ebps"],
-                sub["order"], sub["plen"], sub["pesc"], sub["ps"])
-        before = residual_scan.launches
-        got = t_fd.narrow_residual_scan_kernel(*args)
-        assert residual_scan.launches == before + 1
-        for g, r in zip(got, t_fd.narrow_residual_scan(*args)):
-            assert torch.equal(g, r)
-        rin = t_fd.restore_inputs(sub, 12)
+    for words, starts in (_stream(tmp_path, sig, 16), corrupt_frames()):
+        words = torch.as_tensor(words, device="cuda")
+        pos, assignment, _ = t_fd.read_frame_header(
+            words, torch.as_tensor(starts, device="cuda"), geom.header_ext_bits, 2)
+        rows = []
+        for c in range(2):
+            cbps = t_fd.side_channel_bps(assignment, c, 16, 2)
+            before = residual_scan.launches
+            sub, res, end, ovf = t_fd.subframe_scan_kernel(words, pos, cbps, T, 12)
+            assert residual_scan.launches == before + 1
+            ref = t_fd.subframe_scan(words, pos, cbps, T, 12)
+            for name, _ in SUBFRAME_FIELDS:
+                assert torch.equal(sub[name], ref[0][name]), name
+            for g, r in zip((res, end, ovf), ref[1:]):
+                assert torch.equal(g, r)
+            rows.append((res, *t_fd.restore_inputs(sub, 12)))
+            pos = end
+        stacked = [torch.cat(p) for p in zip(*rows)]
         before = restore_scan.launches
-        x = t_fd.restore_scan_kernel(got[0], *rin, T, 12)
+        x = t_fd.restore_scan_kernel(*stacked, T, 12)
         assert restore_scan.launches == before + 1
-        assert torch.equal(x, t_fd.restore_scan(got[0], *rin, T, 12))
-        pos = got[1]
-    for name, w in fold_guard_bit_strings().items():
+        assert torch.equal(x, t_fd.restore_scan(*stacked, T, 12))
+    for name, w in fold_guard_bit_strings(prefix=GUARD_SUBFRAME_HEADER).items():
         w = torch.as_tensor(w, device="cuda")
-        one = torch.ones(1, dtype=torch.bool, device="cuda")
-        args = (w, torch.zeros(1, dtype=torch.int64, device="cuda"), 8, one, ~one,
-                *(torch.full((1,), v, dtype=torch.int64, device="cuda")
-                  for v in (16, 0, 5, 31, 8)))
-        for g, r in zip(t_fd.narrow_residual_scan_kernel(*args),
-                        t_fd.narrow_residual_scan(*args)):
+        args = (w, torch.zeros(1, dtype=torch.int64, device="cuda"),
+                torch.full((1,), 16, dtype=torch.int64, device="cuda"), 8, 12)
+        got, ref = t_fd.subframe_scan_kernel(*args), t_fd.subframe_scan(*args)
+        for k in ref[0]:
+            assert torch.equal(got[0][k], ref[0][k]), (name, k)
+        for g, r in zip(got[1:], ref[1:]):
             assert torch.equal(g, r), name
+        assert bool(got[3][0]) == (name != "fold_exact")

@@ -108,10 +108,10 @@ def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():
 
 
 def _scan_inputs(B=2, T=8):
-    words = torch.zeros(64, dtype=torch.int32)
-    i64 = torch.zeros(B, dtype=torch.int64)
-    flags = torch.zeros(B, dtype=torch.bool)
-    return (words, i64, T, flags, flags, i64 + 16, i64, i64 + 4, i64 + 15, i64 + T)
+    words = torch.as_tensor(np.random.default_rng(5).integers(
+        -2 ** 31, 2 ** 31, 64, dtype=np.int64).astype(np.int32))
+    pos = torch.tensor([0, 300], dtype=torch.int64)[:B]
+    return (words, pos, pos * 0 + 16, T, 4)
 
 
 def test_cpu_tensors_leave_the_new_launch_counters_alone():
@@ -125,11 +125,11 @@ def test_cpu_tensors_leave_the_new_launch_counters_alone():
     ref = t_packer.pack_fields_merged(v, n, 60)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     args = _scan_inputs()
-    res, pos, ovf = t_fd.narrow_residual_scan_kernel(*args)
-    assert all(torch.equal(a, b) for a, b in
-               zip((res, pos, ovf), t_fd.narrow_residual_scan(*args)))
-    coeffs = torch.zeros((2, 4), dtype=torch.int64)
-    rargs = (res, coeffs, args[1], args[1], coeffs, args[3], 8, 4)
+    sub, res, pos, ovf = t_fd.subframe_scan_kernel(*args)
+    ref = t_fd.subframe_scan(*args)
+    assert all(torch.equal(sub[k], ref[0][k]) for k in ref[0])
+    assert all(torch.equal(a, b) for a, b in zip((res, pos, ovf), ref[1:]))
+    rargs = (res, *t_fd.restore_inputs(sub, 4), 8, 4)
     assert torch.equal(t_fd.restore_scan_kernel(*rargs), t_fd.restore_scan(*rargs))
     assert counts == (pack_words.pack_words_multi.launches, residual_scan.launches,
                       restore_scan.launches)
@@ -142,8 +142,9 @@ def test_new_launchers_refuse_cpu_tensors():
                                     torch.zeros((2, 4), dtype=torch.int32))
     args = _scan_inputs()
     with pytest.raises(ValueError, match="CUDA"):
-        residual_scan.residual_scan(*args)
+        residual_scan.subframe_scan(*args)
     res = torch.zeros((2, 8), dtype=torch.int32)
     c = torch.zeros((2, 4), dtype=torch.int64)
+    i64 = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        restore_scan.restore_scan(res, c, args[1], args[1], c, args[3], 8, 4)
+        restore_scan.restore_scan(res, c, i64, i64, c, i64 == 0, 8, 4)
