@@ -8,40 +8,57 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 1. env            — requires CUDA; prints the card's name and power limit as
                     nvidia-smi gives them, and builds every CUDA kernel from
                     csrc/ (one nvcc per source, all started together).
-2. kernels        — holds the banded word-fill kernel against its plain
-                    PyTorch version on the card, bit for bit: the cases of
-                    tests/test_packer_pallas.py, regenerated from their
-                    seeds, and the real fields of one level-5 batch (B=64,
-                    T=4096, stereo) and of the stream's final partial block.
-                    Then times kernel, plain version and one index_add_ call
-                    (the library yardstick, which the port never calls) at
-                    B=512, T=4096, with CUDA events after warm-up.
-3. kernels_merged — the same for the merged-slot fill (pack_words_multi):
-                    the merged cases of tests/test_packer_pallas.py (the
-                    all-spill case included), a real level-5 batch at B=64
-                    and the partial block; times at B=512.
+2. kernels        — holds the pack kernel's banded instantiation
+                    (pack_words: prefix sum, word fill and CRC-16 in one
+                    launch) against its plain PyTorch composition on the
+                    card, bit for bit, in both modes: fill-only against
+                    pack_fields on the cases of tests/test_packer_pallas.py
+                    (regenerated from their seeds), fused against
+                    pack_fields -> crc16_from_words -> insert_crc16 on the
+                    same cases with a byte-align pad and a zero CRC-16 slot
+                    appended, both again with frames split into 32-word tiles
+                    (the tiled path); both modes on the real fields of
+                    level-5 batches (B=64, the stream's final partial block,
+                    B=512, T=4096, stereo) and fused on the B=64 batch in
+                    1,024-word tiles; fused on two synthetic frames of more
+                    than 3 full shared tiles, which must take the tiled path
+                    and its CRC kernel. Then times the kernel (fused and
+                    fill-only, replays of a CUDA graph of 20 launches, so the
+                    launcher's host work is left out; and back to back from
+                    Python), the plain composition and one index_add_ of the
+                    fill's contributions (the library yardstick, which the
+                    port never calls) at B=512 and B=64, with the bound.
+3. kernels_merged — the same for the merged-slot instantiation
+                    (pack_words_multi, the merge rounds inside), against
+                    pack_fields_merged and its composition; the all-spill
+                    case is among the packer cases.
 4. encode         — the main path: encode_file(level=5) of 60 s of 44.1 kHz
                     stereo 16-bit PCM made from a seed, on the card; the
                     kernel's launch count must equal the number of frame
                     batches (the final partial block included). The file is
                     decoded by the port's host decoder (CRC-8, CRC-16 and MD5
                     checked) and must give the PCM back. The first batch is
-                    also encoded on the CPU, and the frames that differ are
-                    counted (float sums may round apart). One 64-frame batch
+                    also encoded on the CPU, and must give the same bytes
+                    frame for frame. One 64-frame batch
                     is timed by stage on the host clock (the two device
                     stages; the host's MD5, copy back and emit) and once under
                     torch.profiler (device busy time, device events); the idle
-                    share divides the busy time by the unprofiled wall. The
-                    whole encode runs once more under torch.profiler (device
-                    only); its busy time over the first run's wall gives the
-                    run's idle share.
+                    share divides the busy time by the unprofiled wall; 3
+                    pack() calls under the profiler (after a warm-up step)
+                    must be 3 pack kernels and no other device event. The whole encode runs once more under
+                    torch.profiler (device only); its busy time over the first
+                    run's wall gives the run's idle share. The stream's SHA-256
+                    is printed, to compare streams across versions.
 5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s under
                     FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
-                    pack_words_multi must launch 3 times a batch, and the
+                    pack_words_multi must launch once a batch, and the
                     verifier must decode every batch of full frames through
                     the decode kernels (the subframe scan once a channel, the
                     restore once) without a VerifyError. The merged encode
-                    runs once more without verify, for the fill's own cost.
+                    runs once more without verify, for the fill's own cost,
+                    then the banded encode once more, and one 64-frame batch
+                    is timed by stage as in phase 4 with each fill, so that
+                    the two fills are compared at one point of the run.
 6. kernels_decode — holds the subframe-scan kernel (the subframe-header parse
                     and the residual scan in one) against its plain version,
                     read_subframe_header then narrow_residual_scan, bit for
@@ -70,10 +87,12 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
    path, error against the plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
+`same_card.py` compares two versions of the port on one card.
 """
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import os
@@ -94,6 +113,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak memory rate (NVIDIA data sheet)
 # as two flops. An int64 multiply-add is counted as one of them (a floor).
 INT32_MACS_PER_S = 67e12 / 4
 MASK32 = 0xFFFFFFFF
+SMALL_TILE = 32             # words: a tile that splits the packer cases' frames
 DECODE_B = 512              # the stream decoder's batch for long streams
 DECODE_MAXORD = 32          # the stream decoder's default max_lpc_order
 
@@ -148,6 +168,65 @@ def packer_cases():
     rng = np.random.default_rng(5)
     yield ("all_33bit_8x64_w70", rng.integers(0, 1 << 33, size=(8, 64)),
            np.full((8, 64), 33, np.int32), 70)
+
+
+def with_crc_slot(values, nbits, maxwords):
+    """A frame as the frame assembler leaves it: a byte-align pad and a zero
+    16-bit CRC-16 slot appended, two more words of room."""
+    B = len(values)
+    pad = (-(nbits.sum(1) + 16)) % 8
+    nbits = np.concatenate([nbits, pad[:, None], np.full((B, 1), 16)], 1).astype(np.int32)
+    return np.concatenate([values, np.zeros((B, 2), np.int64)], 1), nbits, maxwords + 2
+
+
+def crc_slot_cases():
+    """packer_cases with the CRC slot appended, as tests/test_torch_packer.py
+    builds its CRC-16 cases."""
+    for name, values, nbits, maxwords in packer_cases():
+        yield (f"{name}_crc_slot", *with_crc_slot(values, nbits, maxwords))
+
+
+def tiled_case(tile_words: int, seed: int = 13):
+    """Two frames of random fields whose words fill more than 3 shared tiles
+    of the pack kernel (an 8-channel 8-bit frame of 65,535 samples needs
+    about 180 K words), with the CRC slot appended."""
+    maxwords = 3 * tile_words + 4097
+    nfields = maxwords * 32 * 4 // (5 * 19)  # ~19 bits a field fill 4/5
+    values, nbits = random_fields(np.random.default_rng(seed), 2, nfields, maxwords)
+    values, nbits, maxwords = with_crc_slot(values, nbits, maxwords)
+    return f"tiled_2x{nbits.shape[1]}_w{maxwords}", values, nbits, maxwords
+
+
+def fill_contributions(values, nbits, maxwords, merged):
+    """(idx, src) int64: every word contribution of the fill, banded (c0, c1
+    of each field) or merged (c0-c2 of each merged and spill slot), at its
+    flat word index, those outside [0, maxwords) sent to index B * maxwords:
+    one index_add_ of them is the fill's library yardstick."""
+    from flac_tpu_torch.encode import packer
+    B = values.shape[0]
+    rowbase = torch.arange(B, device=values.device, dtype=torch.int64)[:, None] * maxwords
+    dummy = B * maxwords
+    idx, src = [], []
+
+    def add(w, c):
+        idx.append(torch.where((w >= 0) & (w < maxwords), rowbase + w, dummy).flatten())
+        src.append(c.flatten())
+
+    if merged:
+        arrays, _ = packer.merged_slots(values, nbits)
+        for v, e in arrays:
+            cs, we = packer.contribs3(v, e)
+            for j, c in enumerate(cs):
+                add(we - j, c)
+    else:
+        ends = torch.cumsum(nbits, dim=1, dtype=torch.int32)
+        we = ((ends - 1) >> 5).to(torch.int64)
+        r = ends.to(torch.int64) - (we << 5)
+        has = nbits > 0
+        vv = torch.where(has, values, 0)
+        add(torch.where(has, we, -1), torch.where(has, (vv << (32 - r)) & MASK32, 0))
+        add(torch.where(has, we - 1, -1), (vv >> r) & MASK32)
+    return torch.cat(idx), torch.cat(src)
 
 
 # a FIXED order-0 subframe header, then RICE2 with partition order 0
@@ -212,6 +291,32 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Mean device time of one call, from CUDA events around replays of a
+    CUDA graph of `iters` calls: the launches follow one another on the
+    device without the host's per-call Python and launch overhead, which
+    time_ms measures too when a kernel is shorter than it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (replays * iters)
+    del graph
+    return ms
+
+
 def busy_ms(spans) -> float:
     """Length of the union of (start, end) spans given in microseconds, in ms."""
     total, reach = 0.0, float("-inf")
@@ -261,139 +366,121 @@ def main() -> None:
           "nvcc_s": {k: v["seconds"] for k, v in _build.build_log.items()},
           "ptxas": {k: v["ptxas"] for k, v in _build.build_log.items()}})
 
-    # --- 2. kernel against plain version ------------------------------------
+    # --- 2./3. the pack kernel, both fills, against the plain versions ------
     def u32(t):
         return t.to(torch.int64) & MASK32
 
-    def check(name, values, nbits, maxwords):
-        v = torch.as_tensor(values, dtype=torch.int64, device=dev)
-        n = torch.as_tensor(nbits, dtype=torch.int32, device=dev)
-        wk, tk = packer.pack_fields_kernel(v, n, maxwords)
-        wp, tp = packer.pack_fields(v, n, maxwords)
-        torch.cuda.synchronize()
-        err = int((u32(wk) - u32(wp)).abs().max())
-        if err or not torch.equal(tk, tp):
-            raise AssertionError(f"pack kernel disagrees on {name}: max err {err}")
-        return {"case": name, "shape": list(v.shape), "maxwords": maxwords,
-                "max_abs_err": err}
+    def tables(words):
+        tbl, inv = packer.crc16_word_tables(words)
+        return torch.as_tensor(tbl, device=dev), torch.as_tensor(inv, device=dev)
 
-    cases = [check(*c) for c in packer_cases()]
     pcm = make_pcm(SAMPLE_RATE * SECONDS)
     cfg = EncoderConfig.from_level(5, 2, 16, SAMPLE_RATE)
     fields_fn, _ = build_frame_encoder_parts(cfg, device=dev)
     maxwords = max_frame_bytes(cfg, BLOCKSIZE) // 4
     frames = pcm[: (len(pcm) // BLOCKSIZE) * BLOCKSIZE].reshape(-1, BLOCKSIZE, 2)
-    v64, n64, _ = fields_fn(frames[:64], np.arange(64))
-    cases.append(check("level5_batch_64x4096", v64, n64, maxwords))
-    del v64, n64
     # the stream's final partial block, which encode_file packs on its own
     rem = len(pcm) - frames.shape[0] * BLOCKSIZE
     tail_fn, _ = build_frame_encoder_parts(cfg, blocksize=rem, device=dev)
-    vt, nt, _ = tail_fn(pcm[None, -rem:], np.asarray([frames.shape[0]]))
-    cases.append(check(f"level5_partial_1x{rem}", vt, nt,
-                       max_frame_bytes(cfg, rem) // 4))
-    del vt, nt
-
     B = 512
-    values, nbits, _ = fields_fn(frames[:B], np.arange(B))
-    F = values.shape[1]
-    ends = torch.cumsum(nbits, dim=1, dtype=torch.int32)
-    cases.append(check(f"level5_batch_{B}x{BLOCKSIZE}", values, nbits, maxwords))
-    kernel_ms = time_ms(lambda: pw.pack_words(values, ends, maxwords))
-    plain_ms = time_ms(lambda: packer.pack_fields(values, nbits, maxwords))
-    # library yardstick: one index_add_ of the precomputed word contributions
-    we = ((ends - 1) >> 5).to(torch.int64)
-    r = ends.to(torch.int64) - (we << 5)
-    has = nbits > 0
-    vv = torch.where(has, values, 0)
-    c0 = torch.where(has, (vv << (32 - r)) & MASK32, 0)
-    c1 = (vv >> r) & MASK32
-    rowbase = torch.arange(B, device=dev, dtype=torch.int64)[:, None] * maxwords
-    dummy = B * maxwords
-    i0 = torch.where(has & (we < maxwords), rowbase + we, dummy)
-    i1 = torch.where(has & (we >= 1) & (we - 1 < maxwords), rowbase + we - 1, dummy)
-    idx = torch.cat([i0.flatten(), i1.flatten()])
-    src = torch.cat([c0.flatten(), c1.flatten()])
+    real = [("level5_batch_64x4096", *fields_fn(frames[:64], np.arange(64))[:2], maxwords),
+            (f"level5_partial_1x{rem}",
+             *tail_fn(pcm[None, -rem:], np.asarray([frames.shape[0]]))[:2],
+             max_frame_bytes(cfg, rem) // 4),
+            (f"level5_batch_{B}x{BLOCKSIZE}", *fields_fn(frames[:B], np.arange(B))[:2],
+             maxwords)]
+    tile_max = pw.max_tile_words()
+    big = tiled_case(tile_max)
+    tbl5, inv5 = tables(maxwords)
 
-    def library():
-        return torch.zeros(dummy + 1, dtype=torch.int64, device=dev).index_add_(0, idx, src)
+    def pack_phase(merged: bool) -> dict:
+        launcher = pw.pack_words_multi if merged else pw.pack_words
+        fill_plain = packer.pack_fields_merged if merged else packer.pack_fields
+        fill_kernel = packer.pack_fields_merged_kernel if merged else packer.pack_fields_kernel
 
-    lib_words = library()[:dummy].reshape(B, maxwords)
-    if not torch.equal(lib_words & MASK32, u32(pw.pack_words(values, ends, maxwords))):
-        raise AssertionError("index_add_ yardstick disagrees with the kernel")
-    library_ms = time_ms(library)
-    # what the function must move: values and ends read once (a field's
-    # nbits is its end less the previous end), the words written once
-    bytes_moved = B * F * (8 + 4) + B * maxwords * 4
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    del values, nbits, ends, we, r, has, vv, c0, c1, i0, i1, idx, src, lib_words
+        def check(name, values, nbits, words, crc, tile_words=None):
+            v = torch.as_tensor(values, dtype=torch.int64, device=dev)
+            n = torch.as_tensor(nbits, dtype=torch.int32, device=dev)
+            if crc:  # the fused mode, as pack() launches it
+                tbl, inv = tables(words)
+                wp, tp = packer.pack_frames(v, n, words, tbl, inv, merged)
+                wk, tk = (packer.pack_frames_kernel(v, n, words, tbl, inv, merged)
+                          if tile_words is None
+                          else launcher(v, n, words, tbl, inv, tile_words=tile_words))
+            else:
+                wp, tp = fill_plain(v, n, words)
+                wk, tk = (fill_kernel(v, n, words) if tile_words is None
+                          else launcher(v, n, words, tile_words=tile_words))
+            torch.cuda.synchronize()
+            err = int((u32(wk) - u32(wp)).abs().max())
+            mode = "fused" if crc else "fill"
+            if err or not torch.equal(tk, tp):
+                raise AssertionError(f"{launcher.__name__} disagrees on {name} ({mode}, "
+                                     f"tile {tile_words}): max err {err}")
+            return {"case": name, "mode": mode, "shape": list(v.shape), "maxwords": words,
+                    "tiles": -(-words // (tile_words or tile_max)), "max_abs_err": err}
+
+        cases = []
+        for tile_words in (None, SMALL_TILE):
+            cases += [check(*c, False, tile_words) for c in packer_cases()]
+            cases += [check(*c, True, tile_words) for c in crc_slot_cases()]
+        for name, v, n, words in real:
+            cases += [check(name, v, n, words, False), check(name, v, n, words, True)]
+        cases.append(check(*real[0], True, tile_words=1024))
+        finishes = pw.crc_finish_launches
+        cases.append(check(*big, True))
+        if cases[-1]["tiles"] < 3 or pw.crc_finish_launches != finishes + 1:
+            raise AssertionError(f"the {big[0]} case did not take the tiled path")
+
+        # times at the main path's shapes: the fused kernel (what pack()
+        # launches), its fill-only mode, the plain composition and one
+        # index_add_ of the fill's contributions (the library yardstick,
+        # which the port never calls)
+        timing = {}
+        for _, values, nbits, words in (real[2], real[0]):
+            nb, nf = values.shape
+            idx, src = fill_contributions(values, nbits, words, merged)
+            dummy = nb * words
+
+            def library():
+                return torch.zeros(dummy + 1, dtype=torch.int64,
+                                   device=dev).index_add_(0, idx, src)
+
+            if not torch.equal(library()[:dummy].reshape(nb, words),
+                               u32(launcher(values, nbits, words)[0])):
+                raise AssertionError("the index_add_ yardstick disagrees with the kernel")
+            # values and nbits read once, the words and bit counts written
+            # once, tbl read once and one inv entry a frame; the operations
+            # are crc16_from_words' bit loops: 16 reduction and 16 multiply
+            # steps of 3 int32 operations a word
+            nbytes = nb * nf * 12 + nb * words * 4 + nb * 4 + words * 4 + nb * 4
+            ops = nb * words * 96
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = ops / INT32_MACS_PER_S * 1e3
+            timing[f"B{nb}"] = {
+                "kernel_ms": graph_ms(lambda: launcher(values, nbits, words, tbl5, inv5)),
+                "fill_only_ms": graph_ms(lambda: launcher(values, nbits, words)),
+                # back to back from Python, the launcher's host work included
+                "call_ms": time_ms(lambda: launcher(values, nbits, words, tbl5, inv5)),
+                "plain_ms": time_ms(lambda: packer.pack_frames(values, nbits, words, tbl5,
+                                                               inv5, merged),
+                                    iters=5, warmup=1),
+                "library_ms": graph_ms(library),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "bytes_ms": bytes_ms, "int32_ops": ops, "ops_ms": ops_ms,
+                "fields": nf, "maxwords": words}
+            del idx, src
+        torch.cuda.empty_cache()
+        phase = {"phase": "kernels_merged" if merged else "kernels", "card": card,
+                 "kernel": launcher.__name__, "max_tile_words": tile_max,
+                 "cases": cases, "timing": timing}
+        emit(phase)
+        return phase
+
+    pack_rows = {False: pack_phase(False), True: pack_phase(True)}
+    del real, big
     torch.cuda.empty_cache()
-    emit({"phase": "kernels", "card": card, "cases": cases,
-          "timing_shape": {"B": B, "F": F, "maxwords": maxwords},
-          "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-          "bound_ms": bound_ms, "bytes": bytes_moved})
-
-    # --- 3. merged-slot fill against its plain version ------------------------
-    def check_multi(name, values, nbits, maxwords):
-        v = torch.as_tensor(values, dtype=torch.int64, device=dev)
-        n = torch.as_tensor(nbits, dtype=torch.int32, device=dev)
-        wk, tk = packer.pack_fields_merged_kernel(v, n, maxwords)
-        wp, tp = packer.pack_fields_merged(v, n, maxwords)
-        torch.cuda.synchronize()
-        err = int((u32(wk) - u32(wp)).abs().max())
-        if err or not torch.equal(tk, tp):
-            raise AssertionError(f"merged fill disagrees on {name}: max err {err}")
-        return {"case": name, "shape": list(v.shape), "maxwords": maxwords,
-                "max_abs_err": err}
-
-    mcases = [check_multi(*c) for c in packer_cases()]
-    v64, n64, _ = fields_fn(frames[:64], np.arange(64))
-    mcases.append(check_multi("level5_batch_64x4096", v64, n64, maxwords))
-    vt, nt, _ = tail_fn(pcm[None, -rem:], np.asarray([frames.shape[0]]))
-    mcases.append(check_multi(f"level5_partial_1x{rem}", vt, nt,
-                              max_frame_bytes(cfg, rem) // 4))
-    del v64, n64, vt, nt
-    values, nbits, _ = fields_fn(frames[:B], np.arange(B))
-    mcases.append(check_multi(f"level5_batch_{B}x{BLOCKSIZE}", values, nbits, maxwords))
-    arrays, _ = packer.merged_slots(values, nbits)
-    slots = [(v.contiguous(), e.to(torch.int32).contiguous()) for v, e in arrays]
-
-    def multi_kernel():
-        words = torch.zeros((B, maxwords), dtype=torch.int32, device=dev)
-        for v, e in slots:
-            pw.pack_words_multi(v, e, words)
-        return words
-
-    multi_ms = time_ms(multi_kernel)
-    multi_plain_ms = time_ms(lambda: packer.merged_fill(arrays, maxwords))
-    # library yardstick: one index_add_ of all precomputed contributions
-    idx, src = [], []
-    for v, e in arrays:
-        cs, mwe = packer.contribs3(v, e)
-        for j, c in enumerate(cs):
-            w = mwe - j
-            idx.append(torch.where((w >= 0) & (w < maxwords), rowbase + w, dummy).flatten())
-            src.append(c.flatten())
-    idx, src = torch.cat(idx), torch.cat(src)
-
-    def multi_library():
-        return torch.zeros(dummy + 1, dtype=torch.int64, device=dev).index_add_(0, idx, src)
-
-    if not torch.equal(multi_library()[:dummy].reshape(B, maxwords),
-                       u32(multi_kernel())):
-        raise AssertionError("index_add_ yardstick disagrees with the merged kernel")
-    multi_library_ms = time_ms(multi_library)
-    # each slot's value (8 bytes) and end (4) read once, the words written once
-    multi_bytes = sum(v.numel() for v, _ in slots) * 12 + B * maxwords * 4
-    multi_bound_ms = multi_bytes / HBM_BYTES_PER_S * 1e3
-    slot_shapes = [list(v.shape) for v, _ in slots]
-    del values, nbits, arrays, slots, idx, src
-    torch.cuda.empty_cache()
-    emit({"phase": "kernels_merged", "card": card, "cases": mcases,
-          "timing_shape": {"B": B, "slots": slot_shapes, "maxwords": maxwords},
-          "kernel_ms": multi_ms, "plain_ms": multi_plain_ms,
-          "library_ms": multi_library_ms, "bound_ms": multi_bound_ms,
-          "bytes": multi_bytes})
 
     # --- 4. main path: encode_file on the card ------------------------------
     n = len(pcm)
@@ -436,55 +523,112 @@ def main() -> None:
             m = min(len(a), len(b))
             diff_bytes += int((np.frombuffer(a[:m], np.uint8)
                                != np.frombuffer(b[:m], np.uint8)).sum()) + abs(len(a) - len(b))
+    if diff_frames:
+        raise AssertionError(f"{diff_frames} of the first 64 frames differ between the "
+                             f"CPU and the card ({diff_bytes} bytes)")
 
-    # where one batch's time goes: the two device stages and the host's
-    # MD5, copy back and emit on the host clock, then the device's busy
-    # time and event count from the profiler
-    fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev)
-    emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
-    chunk = pcm[: 64 * BLOCKSIZE]
-
-    def staged():
-        torch.cuda.synchronize()
-        t_a = time.perf_counter()
-        v, nb, _ = fields_gpu(frames[:64], fnos)
-        torch.cuda.synchronize()
-        t_b = time.perf_counter()
-        pack_gpu(v, nb)
-        torch.cuda.synchronize()
-        return (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
-
-    def host_stages():
-        t_a = time.perf_counter()
-        MD5Context().accumulate(chunk, 16)
-        t_b = time.perf_counter()
-        w, tb, _ = enc_gpu(frames[:64], fnos)
-        torch.cuda.synchronize()
-        t_c = time.perf_counter()
-        wh, th = w.cpu().numpy(), tb.cpu().numpy()
-        t_d = time.perf_counter()
-        emitter._emit(wh, th, 64)
-        t_e = time.perf_counter()
-        return tuple((y - x) * 1e3 for x, y in
-                     ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e)))
-
-    staged()
-    host_stages()
-    runs = [(staged(), host_stages()) for _ in range(7)]  # interleaved
-    fields_ms, pack_ms = (float(np.median(s)) for s in zip(*[a for a, _ in runs]))
-    md5_ms, batch_ms, copy_ms, emit_ms = (
-        float(np.median(s)) for s in zip(*[b for _, b in runs]))
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_a = time.perf_counter()
-        enc_gpu(frames[:64], fnos)
+    fnos_64 = np.arange(64)
+
+    def stage_batch(impl: str, trace_pack: bool = True) -> dict:
+        """Where one 64-frame batch's time goes with the word fill `impl`:
+        the two device stages and the host's MD5, copy back and emit on the
+        host clock, the device's busy time and event count under the
+        profiler, and (trace_pack) pack() alone under the profiler, where it
+        must be one kernel and no other device event."""
+        fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev, packer_impl=impl)
+        enc = build_frame_encoder(cfg, device=dev, packer_impl=impl)
+        emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
+        chunk = pcm[: 64 * BLOCKSIZE]
+
+        def staged():
+            torch.cuda.synchronize()
+            t_a = time.perf_counter()
+            v, nb, _ = fields_gpu(frames[:64], fnos_64)
+            torch.cuda.synchronize()
+            t_b = time.perf_counter()
+            pack_gpu(v, nb)
+            torch.cuda.synchronize()
+            return (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
+
+        def host_stages():
+            t_a = time.perf_counter()
+            MD5Context().accumulate(chunk, 16)
+            t_b = time.perf_counter()
+            w, tb, _ = enc(frames[:64], fnos_64)
+            torch.cuda.synchronize()
+            t_c = time.perf_counter()
+            wh, th = w.cpu().numpy(), tb.cpu().numpy()
+            t_d = time.perf_counter()
+            emitter._emit(wh, th, 64)
+            t_e = time.perf_counter()
+            return tuple((y - x) * 1e3 for x, y in
+                         ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e)))
+
+        staged()
+        host_stages()
+        runs = [(staged(), host_stages()) for _ in range(7)]  # interleaved
+        fields_ms, pack_ms = (float(np.median(s)) for s in zip(*[a for a, _ in runs]))
+        md5_ms, batch_ms, copy_ms, emit_ms = (
+            float(np.median(s)) for s in zip(*[b for _, b in runs]))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t_a = time.perf_counter()
+            enc(frames[:64], fnos_64)
+            torch.cuda.synchronize()
+            profiled_ms = (time.perf_counter() - t_a) * 1e3
+        # the device's own events (kernels, copies, fills); summing
+        # key_averages' self device times instead would count each kernel
+        # under its op too
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = busy_ms(spans) if spans else None  # None: the trace saw no device
+        stages = {"fields_ms": fields_ms, "pack_ms": pack_ms, "encode_wall_ms": batch_ms,
+                  "host_md5_ms": md5_ms, "host_copy_back_ms": copy_ms,
+                  "host_emit_ms": emit_ms, "profiled_wall_ms": profiled_ms,
+                  "device_busy_ms": device_ms, "device_events": len(spans),
+                  # busy time over the unprofiled wall; the profiled wall
+                  # gives an upper reading
+                  "device_idle_share": (None if device_ms is None
+                                        else 1 - device_ms / batch_ms),
+                  "device_idle_share_profiled": (None if device_ms is None
+                                                 else 1 - device_ms / profiled_ms)}
+        if not trace_pack:
+            return stages
+        v, nb, _ = fields_gpu(frames[:64], fnos_64)
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t_a) * 1e3
-    # the device's own events (kernels, copies, fills); summing key_averages'
-    # self device times instead would count each kernel under its op too
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = busy_ms(spans) if spans else None  # None: the trace saw no device
+
+        def pack_trace():
+            """Device events of 3 pack() calls, after a warm-up step: the
+            trace misses launches made just after it starts."""
+            traces = []
+            counted = pw.launches + pw.pack_words_multi.launches
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: traces.append(
+                             [e.name for e in p.events()  # less the step's own range
+                              if e.device_type == torch.autograd.DeviceType.CUDA
+                              and not e.name.startswith("ProfilerStep")])) as prof_pack:
+                for calls in (1, 3):
+                    for _ in range(calls):
+                        pack_gpu(v, nb)
+                    torch.cuda.synchronize()
+                    prof_pack.step()
+            if pw.launches + pw.pack_words_multi.launches != counted + 4:
+                raise AssertionError(f"pack() with the {impl} fill did not launch once a call")
+            return traces[0] if traces else []
+
+        # a trace that saw no device activity at all is a failed reading
+        # (pack() launched: the counters say so), and is taken again
+        pack_events, sessions = pack_trace(), 1
+        while not pack_events and sessions < 3:
+            pack_events, sessions = pack_trace(), sessions + 1
+        if len(pack_events) != 3 or any("pack_frames_kernel" not in e for e in pack_events):
+            raise AssertionError(f"3 pack() calls with the {impl} fill ran {pack_events} "
+                                 "on the device, not one pack kernel each")
+        return dict(stages, pack_device_events_3_calls=pack_events,
+                    pack_trace_sessions=sessions)
+
+    one_batch = stage_batch("pallas")
     # the whole encode again, device activity only: its busy time over the
     # unprofiled run's wall is the run's idle share
     with tempfile.TemporaryDirectory() as tmp, \
@@ -505,20 +649,8 @@ def main() -> None:
                                     else 1 - run_busy_s / wall),
           "cpu_vs_gpu_first_batch": {"frames_differing": diff_frames,
                                      "bytes_differing": diff_bytes},
-          "one_batch_64": {"fields_ms": fields_ms, "pack_ms": pack_ms,
-                           "encode_wall_ms": batch_ms,
-                           "host_md5_ms": md5_ms, "host_copy_back_ms": copy_ms,
-                           "host_emit_ms": emit_ms,
-                           "profiled_wall_ms": profiled_ms,
-                           "device_busy_ms": device_ms,
-                           "device_events": len(spans),
-                           # busy time over the unprofiled wall; the
-                           # profiled wall gives an upper reading
-                           "device_idle_share": (None if device_ms is None
-                                                 else 1 - device_ms / batch_ms),
-                           "device_idle_share_profiled": (
-                               None if device_ms is None
-                               else 1 - device_ms / profiled_ms)}})
+          "stream_sha256": hashlib.sha256(data).hexdigest(),
+          "one_batch_64": one_batch})
 
     # --- 5. the merged fill with verify on the card ------------------------
     os.environ["FLAC_TPU_PACKER"] = "merged"
@@ -543,9 +675,17 @@ def main() -> None:
             merged_noverify_wall = time.perf_counter() - t0
     finally:
         os.environ["FLAC_TPU_PACKER"] = "pallas"
+    # the banded encode again at this point of the run: the gap between the
+    # two fills' walls is then the fill's, not the process's state
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "b.flac"), level=5)
+        torch.cuda.synchronize()
+        banded_again_wall = time.perf_counter() - t0
     if merged_data != data:
         raise AssertionError("the merged fill's stream differs from the banded one")
-    if merged_launches != 3 * mstats.batches:
+    if merged_launches != mstats.batches:
         raise AssertionError(f"pack_words_multi launched {merged_launches} times for "
                              f"{mstats.batches} batches")
     full_batches = -(-n_full // 64)  # encode_file's batch_frames; verified
@@ -558,7 +698,10 @@ def main() -> None:
           "verify_restore_scan_launches": verify_launches[1],
           "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
           "wall_s_without_verify": merged_noverify_wall,
-          "msamples_per_s_per_channel": n / merged_wall / 1e6})
+          "banded_wall_s_again": banded_again_wall,
+          "msamples_per_s_per_channel": n / merged_wall / 1e6,
+          "one_batch_64": stage_batch("merged"),
+          "one_batch_64_banded_again": stage_batch("pallas", trace_pack=False)})
 
     # --- 6. decode kernels against their plain versions -----------------------
     d8 = np.frombuffer(data, np.uint8)
@@ -795,31 +938,30 @@ def main() -> None:
           "one_batch_512": stages})
 
     # --- 8. kernels line ----------------------------------------------------
-    emit({"kernels": [{
-        "name": "pack_words", "route": "cuda",
-        "source": "flac_tpu_torch/csrc/pack_words.cu",
-        "replaces": "flac_tpu/encode/packer.py:443",
-        "launches": launches,
-        "bit_exact": all(c["max_abs_err"] == 0 for c in cases),
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes", "library_ms": library_ms}, {
-        "name": "pack_words_multi", "route": "cuda",
-        "source": "flac_tpu_torch/csrc/pack_words.cu",
-        "replaces": "flac_tpu/encode/packer.py:678",
-        "launches": merged_launches,
-        "bit_exact": all(c["max_abs_err"] == 0 for c in mcases),
-        "max_abs_err": max(c["max_abs_err"] for c in mcases),
-        "ms": multi_ms, "plain_ms": multi_plain_ms, "bound_ms": multi_bound_ms,
-        "bound_by": "bytes", "library_ms": multi_library_ms}, {
+    def pack_row(name, merged, replaces, main_launches):
+        row = pack_rows[merged]
+        t512, t64 = row["timing"]["B512"], row["timing"]["B64"]
+        return {"name": name, "route": "cuda", "kernel": f"pack_frames_kernel<{str(merged).lower()}, true>",
+                "source": "flac_tpu_torch/csrc/pack_words.cu", "replaces": replaces,
+                "launches": main_launches,
+                "bit_exact": all(c["max_abs_err"] == 0 for c in row["cases"]),
+                "max_abs_err": max(c["max_abs_err"] for c in row["cases"]),
+                "ms": t512["kernel_ms"], "plain_ms": t512["plain_ms"],
+                "bound_ms": t512["bound_ms"], "bound_by": t512["bound_by"],
+                "library_ms": t512["library_ms"], "ms_b64": t64["kernel_ms"],
+                "bound_ms_b64": t64["bound_ms"], "fill_only_ms": t512["fill_only_ms"]}
+
+    emit({"kernels": [
+        pack_row("pack_words", False, "flac_tpu/encode/packer.py:443", launches),
+        pack_row("pack_words_multi", True, "flac_tpu/encode/packer.py:678",
+                 merged_launches), {
         "name": "residual_scan", "route": "cuda", "kernel": "subframe_scan",
         "source": "flac_tpu_torch/csrc/residual_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:409-456, :291",
         "launches": decode_launches[0], "bit_exact": True,
         "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in dcases),
         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
-        "bound_by": "bytes", "library_ms": None,
-        "pr2_ms": "1.946-1.951, the scan alone after an eager parse (PERF.md)"}, {
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "restore_scan", "route": "cuda",
         "source": "flac_tpu_torch/csrc/restore_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:628",
@@ -827,8 +969,7 @@ def main() -> None:
         "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases),
         "ms": restore_ms, "plain_ms": restore_plain_ms, "bound_ms": restore_bound_ms,
         "bound_by": "bytes" if restore_bytes_ms >= restore_ops_ms else "operations",
-        "library_ms": None,
-        "pr2_ms": "2.397-2.406 a launch of 512 rows, 2 launches a batch (PERF.md)"}]})
+        "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -699,17 +699,14 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     exact_subframe_bits=sel_exact_bits)
         return values.contiguous(), nbits.contiguous(), info
 
-    fill = {"pallas": packer.pack_fields_kernel,
-            "merged": packer.pack_fields_merged_kernel,
-            "xla": packer.pack_fields}[packer_impl]
+    merged = packer_impl == "merged"
 
     def pack(values, nbits):
-        """Word fill (a CUDA kernel for CUDA tensors) + CRC-16 from the
-        packed words."""
-        words, total_bits = fill(values, nbits, maxwords)
-        crc16_val = packer.crc16_from_words(words, total_bits,
-                                            crc16_wtbl, crc16_winv)
-        return packer.insert_crc16(words, total_bits, crc16_val), total_bits
+        """Word fill + CRC-16 from the packed words: one CUDA kernel launch
+        for CUDA tensors, the plain composition for CPU tensors (where
+        "pallas" and "xla" are the same plain banded fill)."""
+        return packer.pack_frames_kernel(values, nbits, maxwords, crc16_wtbl,
+                                         crc16_winv, merged)
 
     def full(pcm, frame_numbers):
         values, nbits, info = encode(pcm, frame_numbers)

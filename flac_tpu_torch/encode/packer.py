@@ -5,12 +5,14 @@ gives each field's end bit; each field lands in at most 2 consecutive 32-bit
 words, and the contributions are bit-disjoint. CRC-8 comes from the fields
 and CRC-16 from the packed words as GF(2) reductions (see flac_tpu.crc).
 
-The word fill has two versions behind `pack_fields_kernel`: the CUDA kernel
-(kernels.pack_words, csrc/pack_words.cu) for CUDA tensors, and the plain
-PyTorch `pack_fields` for CPU tensors. The merged packer
-(`pack_fields_merged_kernel` / plain `pack_fields_merged`) fills the same
-words from pre-merged field quads. Field values MUST be pre-masked to
-their nbits.
+The pack stage has two versions behind `pack_frames_kernel`: one launch of
+the CUDA kernel (kernels.pack_words, csrc/pack_words.cu: prefix sum, word
+fill and CRC-16) for CUDA tensors, and the plain PyTorch `pack_frames`
+(`pack_fields`, `crc16_from_words`, `insert_crc16`) for CPU tensors.
+`pack_fields_kernel` / `pack_fields` is the word fill alone. The merged
+packer (`pack_fields_merged_kernel` / plain `pack_fields_merged`, or
+`merged=True`) fills the same words from merged field quads. Field values
+MUST be pre-masked to their nbits.
 
 torch has no uint32 shifts and no XOR reduction, so the uint32 arithmetic
 of flac_tpu runs here in int64 with explicit 32-bit masks, and XOR sums go
@@ -113,14 +115,13 @@ def pack_fields(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
 
 def pack_fields_kernel(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """pack_fields with the word fill done by the hand-written CUDA kernel —
-    the counterpart of flac_tpu's pack_fields_pallas. CUDA tensors launch
-    the kernel (a failure raises); CPU tensors take the plain version."""
+    """pack_fields done by the hand-written CUDA kernel (its fill-only mode,
+    one launch, the prefix sum inside) — the counterpart of flac_tpu's
+    pack_fields_pallas. CUDA tensors launch the kernel (a failure raises);
+    CPU tensors take the plain version."""
     if values.device.type == "cpu":
         return pack_fields(values, nbits, maxwords)
-    ends, total_bits, _, _ = _field_words(nbits)
-    words = _pack_words.pack_words(values.contiguous(), ends, maxwords)
-    return words, total_bits
+    return _pack_words.pack_words(values.contiguous(), nbits.contiguous(), maxwords)
 
 
 # ---------------------------------------------------------------------------
@@ -221,20 +222,15 @@ def pack_fields_merged(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
 
 def pack_fields_merged_kernel(values: torch.Tensor, nbits: torch.Tensor,
                               maxwords: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """pack_fields_merged with the fill done by the hand-written CUDA kernel
-    (kernels.pack_words.pack_words_multi), launched once per slot array into
-    one buffer — the counterpart of flac_tpu's pack_fields_pallas_merged.
-    CUDA tensors launch the kernel (a failure raises); CPU tensors take the
-    plain version."""
+    """pack_fields_merged done by the hand-written CUDA kernel
+    (kernels.pack_words.pack_words_multi, fill-only, one launch with the
+    prefix sum and the merge rounds inside) — the counterpart of flac_tpu's
+    pack_fields_pallas_merged. CUDA tensors launch the kernel (a failure
+    raises); CPU tensors take the plain version."""
     if values.device.type == "cpu":
         return pack_fields_merged(values, nbits, maxwords)
-    arrays, total_bits = merged_slots(values, nbits)
-    words = torch.zeros((values.shape[0], maxwords), dtype=torch.int32,
-                        device=values.device)
-    for v, e in arrays:
-        _pack_words.pack_words_multi(v.contiguous(), e.to(torch.int32).contiguous(),
-                                     words)
-    return words, total_bits
+    return _pack_words.pack_words_multi(values.contiguous(), nbits.contiguous(),
+                                        maxwords)
 
 
 def stream_words_to_bytes(host_words: np.ndarray, total: int) -> np.ndarray:
@@ -329,3 +325,30 @@ def insert_crc16(words: torch.Tensor, total_bits: torch.Tensor,
     # the CRC straddles two words when rr < 16
     wu[rows, torch.clamp(we - 1, min=0)] += torch.where(rr < 16, c >> rr, 0)
     return to_int32_bits(wu & _MASK32)
+
+
+def pack_frames(values: torch.Tensor, nbits: torch.Tensor, maxwords: int,
+                tbl: torch.Tensor, inv: torch.Tensor, merged: bool = False
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain pack stage, flac_tpu's pack(): the word fill (pack_fields,
+    or pack_fields_merged when `merged`), then crc16_from_words and
+    insert_crc16. The fields must leave each frame's last 16 bits zero (the
+    CRC-16 slot); tbl, inv = crc16_word_tables(maxwords). Returns (words
+    [B, maxwords] int32, total_bits [B] int32)."""
+    fill = pack_fields_merged if merged else pack_fields
+    words, total_bits = fill(values, nbits, maxwords)
+    crc = crc16_from_words(words, total_bits, tbl, inv)
+    return insert_crc16(words, total_bits, crc), total_bits
+
+
+def pack_frames_kernel(values: torch.Tensor, nbits: torch.Tensor, maxwords: int,
+                       tbl: torch.Tensor, inv: torch.Tensor, merged: bool = False
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """pack_frames as one launch of the hand-written CUDA kernel (banded, or
+    the merged-slot fill when `merged`), with the prefix sum, the merge
+    rounds and the CRC-16 inside. CUDA tensors launch the kernel (a failure
+    raises); CPU tensors take the plain pack_frames."""
+    if values.device.type == "cpu":
+        return pack_frames(values, nbits, maxwords, tbl, inv, merged)
+    launch = _pack_words.pack_words_multi if merged else _pack_words.pack_words
+    return launch(values.contiguous(), nbits.contiguous(), maxwords, tbl, inv)

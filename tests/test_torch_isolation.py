@@ -104,7 +104,7 @@ def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     # the kernel launcher refuses CPU tensors instead of computing anything
     with pytest.raises(ValueError, match="CUDA"):
-        pack_words.pack_words(v, torch.cumsum(n, 1, dtype=torch.int32), 60)
+        pack_words.pack_words(v, n, 60)
 
 
 def _scan_inputs(B=2, T=8):
@@ -135,11 +135,34 @@ def test_cpu_tensors_leave_the_new_launch_counters_alone():
                       restore_scan.launches)
 
 
+def test_pack_stage_on_cpu_tensors_runs_the_plain_composition():
+    """pack_frames_kernel and pack() on CPU tensors: the plain fill, CRC-16
+    and insertion, no launch counter touched; the launchers refuse CPU
+    tensors in the fused mode too."""
+    rng = np.random.default_rng(6)
+    nbits = rng.integers(0, 34, size=(3, 50)).astype(np.int32)
+    nbits[:, -2:] = [[8 - int(s) % 8, 16] for s in nbits[:, :-2].sum(1) + 8]
+    values = rng.integers(0, 1 << 62, size=(3, 50)) & ((1 << nbits.astype(np.int64)) - 1)
+    values[:, -2:] = 0
+    v, n = torch.as_tensor(values), torch.as_tensor(nbits)
+    tbl, inv = (torch.as_tensor(t) for t in t_packer.crc16_word_tables(60))
+    counts = (pack_words.launches, pack_words.pack_words_multi.launches,
+              pack_words.crc_finish_launches)
+    for merged in (False, True):
+        got = t_packer.pack_frames_kernel(v, n, 60, tbl, inv, merged)
+        ref = t_packer.pack_frames(v, n, 60, tbl, inv, merged)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        launch = pack_words.pack_words_multi if merged else pack_words.pack_words
+        with pytest.raises(ValueError, match="CUDA"):
+            launch(v, n, 60, tbl, inv)
+    assert counts == (pack_words.launches, pack_words.pack_words_multi.launches,
+                      pack_words.crc_finish_launches)
+
+
 def test_new_launchers_refuse_cpu_tensors():
     v = torch.zeros((2, 8), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        pack_words.pack_words_multi(v, v.to(torch.int32),
-                                    torch.zeros((2, 4), dtype=torch.int32))
+        pack_words.pack_words_multi(v, v.to(torch.int32), 4)
     args = _scan_inputs()
     with pytest.raises(ValueError, match="CUDA"):
         residual_scan.subframe_scan(*args)

@@ -203,6 +203,6 @@ def test_cuda_merged_kernel_matches_plain_on_card(name):
     before = pack_words.pack_words_multi.launches
     got_w, got_t = t_packer.pack_fields_merged_kernel(v, n, maxwords)
     ref_w, ref_t = t_packer.pack_fields_merged(v, n, maxwords)
-    assert pack_words.pack_words_multi.launches == before + 3
+    assert pack_words.pack_words_multi.launches == before + 1
     assert torch.equal(got_t, ref_t)
     assert torch.equal(got_w, ref_w)
