@@ -83,7 +83,46 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     is timed by stage and once under torch.profiler, and the
                     whole decode runs again under torch.profiler for its
                     device idle share.
-8. the `kernels` line, one entry per ported kernel, with its launches on its
+8. encode_hires    — the slice's main path: encode_file(level=8, verify=True)
+                    of 30 s of 96 kHz stereo 24-bit PCM made from a seed
+                    (a sine mix plus noise at 24-bit scale), blocksize 4096,
+                    batches of 64: one pack launch a batch, the verifier's
+                    narrow scan once a channel and the restore once a batch
+                    of full frames, no VerifyError; the same bytes again
+                    without verify; a lossless decode by the port's host
+                    decoder; the first 16 frames encoded on the CPU give the
+                    same bytes. One 64-frame batch is timed by stage and its
+                    device idle share taken as in phase 4; the SHA-256 is
+                    printed. Then 10 s of the same format with -p and escape
+                    coding on tests/test_escape.py's burst signal: escaped
+                    partitions, lossless, the first 8 frames CPU-identical.
+9. decode_hires    — decode_bytes_device of the 24-bit stream: the exact input,
+                    MD5 checked, on path "device" (the partial frame and any
+                    frame the scan flags on the host, counted), the narrow
+                    scan launched batches x channels times; its wall, then
+                    the median of 5 more. Holds the narrow scan and the
+                    restore (W = 16 taps, order 12) against their plain
+                    versions on the stream's first 512 frames, and the pack
+                    kernel on one level-8 24-bit batch.
+10. wide           — encode_file(level=5, verify=True) of 5 s of 44.1 kHz
+                    stereo at 28 bits (mid-side on: a 29-bit side channel,
+                    the int64 LPC path) and at 32 bits (mid-side off): the
+                    verifier through the wide scan kernel; lossless on the
+                    host decoder; then decode_bytes_device of each gives the
+                    exact input through the wide scan kernel, launches
+                    counted.
+11. kernels_wide   — holds the wide scan kernel against wide_residual_scan's
+                    composition bit for bit on every output (every parse
+                    field, int64 res, end positions, overflow flags): the
+                    first 512 frames of phase 4's stream read wide, every
+                    frame of phase 10's 32-bit stream, the guard strings
+                    (the fold strings, which the wide scan has no guard for;
+                    a unary run of 60 zeros; VERBATIM 32-bit samples that
+                    outrun the refill) and phase 6's 512 random starts; the
+                    restore's int64-res instantiation on the same rows. Times
+                    the kernel and the plain version at B=512, T=4096, with
+                    the bound.
+12. the `kernels` line, one entry per ported kernel, with its launches on its
    path, error against the plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
@@ -116,26 +155,70 @@ MASK32 = 0xFFFFFFFF
 SMALL_TILE = 32             # words: a tile that splits the packer cases' frames
 DECODE_B = 512              # the stream decoder's batch for long streams
 DECODE_MAXORD = 32          # the stream decoder's default max_lpc_order
+HIRES_RATE = 96000          # the hi-res archival format: 24-bit/96 kHz stereo at -8
+HIRES_SECONDS = 30
+PE_SECONDS = 10             # the -p and escape-coding encode of that format
+WIDE_SECONDS = 5            # the 28- and 32-bit streams (44.1 kHz stereo, -5)
 
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def make_pcm(n: int, seed: int = 0) -> np.ndarray:
-    """Stereo 16-bit test music: a sine mix per channel plus noise (in the
-    style of tests/conftest.make_signal)."""
+def make_pcm(n: int, seed: int = 0, rate: int = SAMPLE_RATE, bits: int = 16,
+             sigma: float | None = None) -> np.ndarray:
+    """Stereo test music: a sine mix per channel plus Gaussian noise (in the
+    style of tests/conftest.make_signal), at `bits` bits; the noise's sigma
+    scales with the sample width (64 at 16 bits) unless given."""
     rng = np.random.default_rng(seed)
     t = np.arange(n, dtype=np.float64)
-    amp = (1 << 15) - 1
+    amp = (1 << (bits - 1)) - 1
+    if sigma is None:
+        sigma = 64.0 * 2.0 ** (bits - 16)
     out = np.zeros((n, 2), np.int32)
     for c in range(2):
         f1, f2 = 441.0 * (c + 1), 1234.5 + 100 * c
-        x = (0.6 * np.sin(2 * np.pi * f1 * t / SAMPLE_RATE)
-             + 0.3 * np.sin(2 * np.pi * f2 * t / SAMPLE_RATE))
-        noisy = np.round(x * amp * 0.8 + rng.normal(0, 64, n))
-        out[:, c] = np.clip(noisy, -amp - 1, amp).astype(np.int32)
+        x = (0.6 * np.sin(2 * np.pi * f1 * t / rate)
+             + 0.3 * np.sin(2 * np.pi * f2 * t / rate))
+        noisy = np.round(x * amp * 0.8 + rng.normal(0, sigma, n))
+        out[:, c] = np.clip(noisy, -amp - 1, amp).astype(np.int64).astype(np.int32)
     return out
+
+
+def burst_pcm(n: int, bits: int, seed: int = 1, every: int = 1 << 17,
+              length: int = 512) -> np.ndarray:
+    """tests/test_escape.py::_burst_signal at length n: a quiet tone (5% of
+    full scale) with a full-scale noise burst of `length` samples every
+    `every` samples, each confined to a few Rice partitions, where an
+    escaped (raw) partition beats Rice; the right channel is 0.9 x the
+    left."""
+    rng = np.random.default_rng(seed)
+    full = (1 << (bits - 1)) - 1
+    t = np.arange(n)
+    sig = np.round(0.05 * full * np.sin(2 * np.pi * t / 97.0)).astype(np.int64)
+    for s in range(every // 2, n - length, every):
+        sig[s:s + length] = rng.integers(-full - 1, full, length)
+    return np.stack([sig, np.round(0.9 * sig).astype(np.int64)], axis=-1).astype(np.int32)
+
+
+def frames_differing(cfg, frames: np.ndarray, dev) -> tuple[int, int]:
+    """(frames, bytes) that differ between the frame encoder on the CPU and
+    on the card, for one batch of frames numbered from 0."""
+    from flac_tpu_torch.encode.frame_encoder import build_frame_encoder
+    fnos = np.arange(len(frames))
+    wc, tc, _ = build_frame_encoder(cfg, device="cpu")(frames, fnos)
+    wg, tg, _ = build_frame_encoder(cfg, device=dev)(frames, fnos)
+    wg, tg = wg.cpu(), tg.cpu()
+    n_frames = n_bytes = 0
+    for i in range(len(frames)):
+        a = wc[i].numpy().astype(">u4").tobytes()[: int(tc[i]) // 8]
+        b = wg[i].numpy().astype(">u4").tobytes()[: int(tg[i]) // 8]
+        if a != b:
+            n_frames += 1
+            m = min(len(a), len(b))
+            n_bytes += int((np.frombuffer(a[:m], np.uint8)
+                            != np.frombuffer(b[:m], np.uint8)).sum()) + abs(len(a) - len(b))
+    return n_frames, n_bytes
 
 
 def random_fields(rng, B, F, maxwords, long_frac=0.05):
@@ -252,6 +335,20 @@ def fold_guard_words(n: int = 8) -> dict:
     return out
 
 
+def verbatim_words(bits: int, n: int, seed: int = 9) -> np.ndarray:
+    """A VERBATIM subframe header and n random samples of `bits` bits (as
+    words, zero-padded): at 32 bits a step of 4 samples spends 128 bits,
+    more than the wide scan's 96-bit refill brings, so its window runs dry
+    and the scan must flag the frame."""
+    rng = np.random.default_rng(seed)
+    bits_s = "00000010" + "".join(format(int(v), f"0{bits}b")
+                                  for v in rng.integers(0, 1 << bits, n, dtype=np.uint64))
+    bits_s += "0" * ((-len(bits_s)) % 32)
+    w = np.array([int(bits_s[i:i + 32], 2) for i in range(0, len(bits_s), 32)],
+                 dtype=np.uint64).astype(np.uint32).view(np.int32)
+    return np.concatenate([w, np.zeros(16, np.int32)])
+
+
 def random_subframes(n: int = 512, nwords: int = 1 << 14, seed: int = 3):
     """Random words with zero runs, and n random subframe starts with their
     sample widths (16 or 17). A quarter of the starts get a header byte with
@@ -333,7 +430,7 @@ def main() -> None:
     from flac_tpu_torch import _native
     from flac_tpu_torch.decode import frame_decoder as fd
     from flac_tpu_torch.decode import stream as st
-    from flac_tpu_torch.decode.host_decoder import decode_bytes
+    from flac_tpu_torch.decode.host_decoder import HostDecoder, decode_bytes
     from flac_tpu_torch.encode import packer
     from flac_tpu_torch.encode.encoder import StreamEncoder, encode_file
     from flac_tpu_torch.encode.frame_encoder import (
@@ -508,21 +605,7 @@ def main() -> None:
         raise AssertionError("decoded PCM differs from the input")
 
     # the first batch again, on the CPU and on the card
-    enc_cpu = build_frame_encoder(cfg, device="cpu")
-    enc_gpu = build_frame_encoder(cfg, device=dev)
-    fnos = np.arange(64)
-    wc, tc, _ = enc_cpu(frames[:64], fnos)
-    wg, tg, _ = enc_gpu(frames[:64], fnos)
-    wg, tg = wg.cpu(), tg.cpu()
-    diff_frames = diff_bytes = 0
-    for i in range(64):
-        a = wc[i].numpy().astype(">u4").tobytes()[: int(tc[i]) // 8]
-        b = wg[i].numpy().astype(">u4").tobytes()[: int(tg[i]) // 8]
-        if a != b:
-            diff_frames += 1
-            m = min(len(a), len(b))
-            diff_bytes += int((np.frombuffer(a[:m], np.uint8)
-                               != np.frombuffer(b[:m], np.uint8)).sum()) + abs(len(a) - len(b))
+    diff_frames, diff_bytes = frames_differing(cfg, frames[:64], dev)
     if diff_frames:
         raise AssertionError(f"{diff_frames} of the first 64 frames differ between the "
                              f"CPU and the card ({diff_bytes} bytes)")
@@ -530,16 +613,17 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
     fnos_64 = np.arange(64)
 
-    def stage_batch(impl: str, trace_pack: bool = True) -> dict:
-        """Where one 64-frame batch's time goes with the word fill `impl`:
-        the two device stages and the host's MD5, copy back and emit on the
-        host clock, the device's busy time and event count under the
-        profiler, and (trace_pack) pack() alone under the profiler, where it
-        must be one kernel and no other device event."""
+    def stage_batch(impl: str, trace_pack: bool = True, cfg=cfg, frames=frames) -> dict:
+        """Where one 64-frame batch of `frames` (encoded with `cfg`) spends
+        its time with the word fill `impl`: the two device stages and the
+        host's MD5, copy back and emit on the host clock, the device's busy
+        time and event count under the profiler, and (trace_pack) pack()
+        alone under the profiler, where it must be one kernel and no other
+        device event."""
         fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev, packer_impl=impl)
         enc = build_frame_encoder(cfg, device=dev, packer_impl=impl)
         emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
-        chunk = pcm[: 64 * BLOCKSIZE]
+        chunk = frames[:64].reshape(-1, cfg.channels)
 
         def staged():
             torch.cuda.synchronize()
@@ -553,7 +637,7 @@ def main() -> None:
 
         def host_stages():
             t_a = time.perf_counter()
-            MD5Context().accumulate(chunk, 16)
+            MD5Context().accumulate(chunk, cfg.bits_per_sample)
             t_b = time.perf_counter()
             w, tb, _ = enc(frames[:64], fnos_64)
             torch.cuda.synchronize()
@@ -937,7 +1021,336 @@ def main() -> None:
                                     else 1 - dec_busy_s / decode_wall),
           "one_batch_512": stages})
 
-    # --- 8. kernels line ----------------------------------------------------
+    # --- 8. encode_hires: 24-bit/96 kHz at -8 on the card ----------------------
+    pcm24 = make_pcm(HIRES_RATE * HIRES_SECONDS, seed=24, rate=HIRES_RATE, bits=24)
+    n24 = len(pcm24)
+    n_full24 = n24 // BLOCKSIZE
+    frames24 = pcm24[: n_full24 * BLOCKSIZE].reshape(-1, BLOCKSIZE, 2)
+    cfg8 = EncoderConfig.from_level(8, 2, 24, HIRES_RATE)
+    full_batches24 = -(-n_full24 // 64)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        pw.launches = rs.launches = rs.wide_launches = rr.launches = 0
+        t0 = time.perf_counter()
+        hstats = encode_file(pcm24, HIRES_RATE, 24, os.path.join(tmp, "h.flac"), level=8,
+                             verify=True)
+        torch.cuda.synchronize()
+        hires_wall = time.perf_counter() - t0
+        hires_launches = (pw.launches, rs.launches, rs.wide_launches, rr.launches)
+        with open(os.path.join(tmp, "h.flac"), "rb") as f:
+            data24 = f.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_file(pcm24, HIRES_RATE, 24, os.path.join(tmp, "h2.flac"), level=8)
+        torch.cuda.synchronize()
+        hires_noverify_wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "h2.flac"), "rb") as f:
+            if f.read() != data24:
+                raise AssertionError("the 24-bit -8 stream differs without verify")
+    if hstats.frames != n_full24 + 1 or hstats.samples != n24:
+        raise AssertionError(f"hi-res encode: {hstats.frames} frames / {hstats.samples} samples")
+    # one pack launch a batch; the verifier's narrow scan once a channel and
+    # the restore once a batch of full frames
+    if hires_launches != (hstats.batches, 2 * full_batches24, 0, full_batches24):
+        raise AssertionError(f"hi-res encode launched (pack, scan, wide scan, restore) "
+                             f"{hires_launches} for {hstats.batches} batches")
+    out24, si24, _ = decode_bytes(data24)  # CRC-8, CRC-16 and MD5 checked
+    if si24.md5sum == b"\x00" * 16 or not np.array_equal(out24, pcm24):
+        raise AssertionError("the 24-bit -8 stream does not decode to its input")
+    diff24 = frames_differing(cfg8, frames24[:16], dev)
+    if diff24[0]:
+        raise AssertionError(f"{diff24[0]} of the first 16 24-bit -8 frames differ "
+                             f"between the CPU and the card ({diff24[1]} bytes)")
+    one_batch_24 = stage_batch("pallas", trace_pack=False, cfg=cfg8, frames=frames24)
+    # -p and escape coding on a signal with full-scale bursts
+    pcm_pe = burst_pcm(HIRES_RATE * PE_SECONDS, 24, seed=25)
+    cfg_pe = EncoderConfig.from_level(8, 2, 24, HIRES_RATE, do_qlp_coeff_prec_search=True,
+                                      do_escape_coding=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        pw.launches = 0
+        t0 = time.perf_counter()
+        pstats = encode_file(pcm_pe, HIRES_RATE, 24, os.path.join(tmp, "pe.flac"), level=8,
+                             do_qlp_coeff_prec_search=True, do_escape_coding=True)
+        torch.cuda.synchronize()
+        pe_wall = time.perf_counter() - t0
+        pe_launches = pw.launches
+        with open(os.path.join(tmp, "pe.flac"), "rb") as f:
+            data_pe = f.read()
+    pe_pcm, pe_frames = HostDecoder(data_pe).decode_all()
+    escaped = sum(p == -1 for fr in pe_frames for sf in fr.subframes for p in sf.rice_params)
+    if not np.array_equal(pe_pcm, pcm_pe) or not np.array_equal(decode_bytes(data_pe)[0],
+                                                                 pcm_pe):
+        raise AssertionError("the -p / escape stream does not decode to its input")
+    if escaped == 0 or pe_launches != pstats.batches:
+        raise AssertionError(f"-p / escape encode: {escaped} escaped partitions, "
+                             f"{pe_launches} pack launches for {pstats.batches} batches")
+    n_full_pe = len(pcm_pe) // BLOCKSIZE
+    diff_pe = frames_differing(cfg_pe, pcm_pe[: n_full_pe * BLOCKSIZE].reshape(
+        -1, BLOCKSIZE, 2)[:8], dev)
+    if diff_pe[0]:
+        raise AssertionError(f"{diff_pe[0]} of the first 8 -p / escape frames differ "
+                             f"between the CPU and the card ({diff_pe[1]} bytes)")
+    emit({"phase": "encode_hires", "card": card, "seconds_of_audio": HIRES_SECONDS,
+          "sample_rate": HIRES_RATE, "bits_per_sample": 24, "level": 8,
+          "samples_per_channel": n24, "frames": hstats.frames, "batches": hstats.batches,
+          "pack_kernel_launches": hires_launches[0],
+          "verify_subframe_scan_launches": hires_launches[1],
+          "verify_restore_scan_launches": hires_launches[3], "verify": "passed",
+          "wall_s": hires_wall, "wall_s_without_verify": hires_noverify_wall,
+          "msamples_per_s_per_channel": n24 / hires_wall / 1e6,
+          "compression_ratio": len(data24) / (n24 * 2 * 3), "bytes": len(data24),
+          "lossless": True, "bytes_equal_without_verify": True,
+          "cpu_vs_gpu_first_16": {"frames_differing": diff24[0], "bytes_differing": diff24[1]},
+          "stream_sha256": hashlib.sha256(data24).hexdigest(),
+          "one_batch_64": one_batch_24,
+          "p_escape": {"seconds_of_audio": PE_SECONDS, "frames": pstats.frames,
+                       "batches": pstats.batches, "pack_kernel_launches": pe_launches,
+                       "wall_s": pe_wall, "bytes": len(data_pe),
+                       "escaped_partitions": escaped, "lossless": True,
+                       "cpu_vs_gpu_first_8": {"frames_differing": diff_pe[0],
+                                              "bytes_differing": diff_pe[1]}}})
+
+    # --- 9. decode_hires: the 24-bit stream on the card ------------------------
+    n_batches24 = -(-n_full24 // DECODE_B)
+    torch.cuda.synchronize()
+    rs.launches = rs.wide_launches = rr.launches = 0
+    t0 = time.perf_counter()
+    dout24, _si, dinfo24 = st.decode_bytes_device(data24)
+    torch.cuda.synchronize()
+    dwall24 = time.perf_counter() - t0
+    dlaunch24 = (rs.launches, rs.wide_launches, rr.launches)
+    if not np.array_equal(dout24, pcm24):
+        raise AssertionError("decode_bytes_device did not return the 24-bit input")
+    if dinfo24["path"] != "device" or dinfo24["errors"] or dinfo24["frames"] != n_full24 + 1:
+        raise AssertionError(f"decode_bytes_device (24-bit): {dinfo24}")
+    if dinfo24["host_frames"] != 1 + dinfo24["overflow_frames"]:
+        raise AssertionError(f"24-bit frames on the host: {dinfo24}")
+    if dlaunch24 != (2 * n_batches24, 0, n_batches24):
+        raise AssertionError(f"24-bit decode launched (scan, wide scan, restore) "
+                             f"{dlaunch24} for {n_batches24} batches of 2 channels")
+    dwalls24 = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.decode_bytes_device(data24)
+        torch.cuda.synchronize()
+        dwalls24.append(time.perf_counter() - t0)
+    # the kernels at the new widths against their plain versions: the narrow
+    # scan on 24-bit RICE2 frames with a 25-bit side channel, the restore at
+    # order 12 (its W = 16 instantiation), the pack kernel on one level-8
+    # 24-bit batch
+    d824 = np.frombuffer(data24, np.uint8)
+    blocks24, ao24 = parse_metadata(data24)
+    offsets24 = st.index_frames(d824, ao24, blocks24[0])
+    words24 = torch.as_tensor(fd.bytes_to_words(d824, bucket=True), device=dev)
+    geom24 = fd.DecoderGeometry(blocksize=BLOCKSIZE, channels=2, bits_per_sample=24,
+                                sample_rate=HIRES_RATE, max_lpc_order=DECODE_MAXORD)
+    starts24 = torch.as_tensor(offsets24[:DECODE_B] * 8, device=dev)
+    pos, assignment, _ = fd.read_frame_header(words24, starts24, geom24.header_ext_bits, 2)
+    rows24 = []
+    for c in range(2):
+        cbps = fd.side_channel_bps(assignment, c, 24, 2)
+        got = rs.subframe_scan(words24, pos, cbps, BLOCKSIZE, DECODE_MAXORD)
+        ref = fd.subframe_scan(words24, pos, cbps, BLOCKSIZE, DECODE_MAXORD)
+        torch.cuda.synchronize()
+        dcases.append({"case": f"hires24_{DECODE_B}x{BLOCKSIZE}_channel{c}",
+                       "subframe_scan_max_abs_err": scan_err(got, ref),
+                       "overflow_frames": int(got[3].sum()),
+                       "max_side_bps": int(cbps.max())})
+        rows24.append((got[1], *fd.restore_inputs(got[0], DECODE_MAXORD)))
+        pos = got[2]
+    rargs24 = (*stack_rows(rows24), BLOCKSIZE, DECODE_MAXORD)
+    coded_orders = rargs24[2][rargs24[5]]
+    if not 8 < int(coded_orders.max()) <= 16:
+        raise AssertionError("the 24-bit -8 frames did not reach the restore's W = 16 taps")
+    xk, xp = rr.restore_scan(*rargs24), fd.restore_scan(*rargs24)
+    torch.cuda.synchronize()
+    dcases.append({"case": f"hires24_stacked_{2 * DECODE_B}x{BLOCKSIZE}",
+                   "restore_scan_max_abs_err": err(xk, xp),
+                   "max_order": int(coded_orders.max())})
+    del xk, xp, rows24, rargs24
+    fields8, _ = build_frame_encoder_parts(cfg8, device=dev)
+    v8, nb8, _ = fields8(frames24[:64], np.arange(len(frames24[:64])))
+    words8 = max_frame_bytes(cfg8, BLOCKSIZE) // 4
+    tbl8, inv8 = tables(words8)
+    wp, tp = packer.pack_frames(v8, nb8, words8, tbl8, inv8, False)
+    wk, tk = packer.pack_frames_kernel(v8, nb8, words8, tbl8, inv8, False)
+    torch.cuda.synchronize()
+    perr = int((u32(wk) - u32(wp)).abs().max()) + int((tk != tp).sum())
+    pack_rows[False]["cases"].append({"case": "level8_24bit_batch_64x4096", "mode": "fused",
+                                      "shape": list(v8.shape), "maxwords": words8,
+                                      "max_abs_err": perr})
+    del v8, nb8, wp, wk
+    for cse in dcases:
+        if any(v for k, v in cse.items() if k.endswith("max_abs_err")):
+            raise AssertionError(f"a decode kernel disagrees on {cse}")
+    if perr:
+        raise AssertionError("the pack kernel disagrees on a level-8 24-bit batch")
+    emit({"phase": "decode_hires", "card": card, "frames": dinfo24["frames"],
+          "batches": n_batches24, "path": dinfo24["path"],
+          "host_frames": dinfo24["host_frames"], "overflow_frames": dinfo24["overflow_frames"],
+          "subframe_scan_launches": dlaunch24[0], "restore_scan_launches": dlaunch24[2],
+          "lossless": True, "wall_s": dwall24, "wall_s_repeats": dwalls24,
+          "wall_s_median_of_repeats": float(np.median(dwalls24)),
+          "msamples_per_s_per_channel": n24 / float(np.median(dwalls24)) / 1e6,
+          "kernel_cases": dcases[-3:], "pack_level8_24bit_max_abs_err": perr})
+
+    # --- 10. wide: 28- and 32-bit streams through the wide scan ----------------
+    wide_rows, wide_streams = {}, {}
+    wide_decode_launches = 0
+    for bps in (28, 32):
+        # noise of sigma 2^18 at both widths: the wide scan refills 96 bits a
+        # step of 4 samples, so residuals of more than about 22 bits (32-bit
+        # noise scaled as at 16 bits) run its window dry; it flags those
+        # frames, which verify compares all the same (ROADMAP queue 3)
+        pcm_w = make_pcm(SAMPLE_RATE * WIDE_SECONDS, seed=bps, bits=bps, sigma=2.0 ** 18)
+        nw_ = len(pcm_w)
+        n_full_w = nw_ // BLOCKSIZE
+        full_batches_w = -(-n_full_w // 64)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            pw.launches = rs.launches = rs.wide_launches = rr.launches = 0
+            t0 = time.perf_counter()
+            wstats = encode_file(pcm_w, SAMPLE_RATE, bps, os.path.join(tmp, "w.flac"),
+                                 level=5, verify=True)
+            torch.cuda.synchronize()
+            wwall = time.perf_counter() - t0
+            wlaunch = (pw.launches, rs.launches, rs.wide_launches, rr.launches)
+            with open(os.path.join(tmp, "w.flac"), "rb") as f:
+                data_w = f.read()
+        if wlaunch != (wstats.batches, 0, 2 * full_batches_w, full_batches_w):
+            raise AssertionError(f"{bps}-bit encode launched (pack, scan, wide scan, "
+                                 f"restore) {wlaunch} for {wstats.batches} batches")
+        if not np.array_equal(decode_bytes(data_w)[0], pcm_w):
+            raise AssertionError(f"the {bps}-bit stream does not decode to its input")
+        n_batches_w = -(-n_full_w // DECODE_B)
+        torch.cuda.synchronize()
+        rs.launches = rs.wide_launches = rr.launches = 0
+        t0 = time.perf_counter()
+        dout_w, _si, dinfo_w = st.decode_bytes_device(data_w)
+        torch.cuda.synchronize()
+        dwall_w = time.perf_counter() - t0
+        dlaunch_w = (rs.launches, rs.wide_launches, rr.launches)
+        if not np.array_equal(dout_w, pcm_w) or dinfo_w["path"] != "device" \
+                or dinfo_w["errors"] or dinfo_w["frames"] != n_full_w + 1:
+            raise AssertionError(f"decode_bytes_device ({bps}-bit): {dinfo_w}")
+        if dlaunch_w != (0, 2 * n_batches_w, n_batches_w):
+            raise AssertionError(f"{bps}-bit decode launched (scan, wide scan, restore) "
+                                 f"{dlaunch_w} for {n_batches_w} batches of 2 channels")
+        wide_decode_launches += dlaunch_w[1]
+        wide_streams[bps] = data_w
+        wide_rows[bps] = {"seconds_of_audio": WIDE_SECONDS, "frames": wstats.frames,
+                          "batches": wstats.batches, "pack_kernel_launches": wlaunch[0],
+                          "verify_wide_scan_launches": wlaunch[2],
+                          "verify_restore_scan_launches": wlaunch[3], "verify": "passed",
+                          "encode_wall_s": wwall, "bytes": len(data_w),
+                          "compression_ratio": len(data_w) / (nw_ * 2 * bps / 8),
+                          "decode_wall_s": dwall_w, "decode_path": dinfo_w["path"],
+                          "host_frames": dinfo_w["host_frames"],
+                          "overflow_frames": dinfo_w["overflow_frames"],
+                          "wide_scan_launches": dlaunch_w[1],
+                          "restore_scan_launches": dlaunch_w[2], "lossless": True,
+                          "stream_sha256": hashlib.sha256(data_w).hexdigest()}
+    emit({"phase": "wide", "card": card, "streams": {str(k): v for k, v in wide_rows.items()}})
+
+    # --- 11. kernels_wide: the wide scan kernel against its plain version ------
+    wcases = []
+
+    def wide_check(name, words_t, pos_t, cbps_t, T, timed=False):
+        """The wide kernel against wide_residual_scan's composition on every
+        output; returns the kernel's outputs and the plain call's seconds."""
+        got = rs.subframe_scan(words_t, pos_t, cbps_t, T, DECODE_MAXORD, wide=True)
+        torch.cuda.synchronize()
+        t_a = time.perf_counter()
+        ref = fd.subframe_scan(words_t, pos_t, cbps_t, T, DECODE_MAXORD, wide=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t_a
+        wcases.append({"case": name, "subframe_scan_max_abs_err": scan_err(got, ref),
+                       "overflow_frames": int(got[3].sum())})
+        return got, plain_s
+
+    # the first 512 frames of phase 4's 16-bit stream, read wide
+    pos, assignment, _ = fd.read_frame_header(words, starts, geom.header_ext_bits, 2)
+    rows16, wide_timing = [], []  # (pos, cbps, end, plain seconds) a channel
+    for c in range(2):
+        cbps = fd.side_channel_bps(assignment, c, 16, 2)
+        got, plain_s = wide_check(f"stream16_{DECODE_B}x{BLOCKSIZE}_channel{c}", words,
+                                  pos, cbps, BLOCKSIZE)
+        wide_timing.append((pos, cbps, got[2], plain_s))
+        rows16.append((got[1], *fd.restore_inputs(got[0], DECODE_MAXORD)))
+        pos = got[2]
+    rargs_w = (*stack_rows(rows16), BLOCKSIZE, DECODE_MAXORD)
+    xk, xp = rr.restore_scan(*rargs_w), fd.restore_scan(*rargs_w)
+    torch.cuda.synchronize()
+    wcases.append({"case": f"stream16_stacked_int64_res_{2 * DECODE_B}x{BLOCKSIZE}",
+                   "restore_scan_max_abs_err": err(xk, xp)})
+    del xk, xp, rows16, rargs_w
+    # every frame of the 32-bit stream of phase 10
+    d832 = np.frombuffer(wide_streams[32], np.uint8)
+    blocks32, ao32 = parse_metadata(wide_streams[32])
+    offsets32 = st.index_frames(d832, ao32, blocks32[0])
+    words32 = torch.as_tensor(fd.bytes_to_words(d832, bucket=True), device=dev)
+    geom32 = fd.DecoderGeometry(blocksize=BLOCKSIZE, channels=2, bits_per_sample=32,
+                                sample_rate=SAMPLE_RATE, max_lpc_order=DECODE_MAXORD)
+    pos, assignment, _ = fd.read_frame_header(
+        words32, torch.as_tensor(offsets32 * 8, device=dev), geom32.header_ext_bits, 2)
+    rows32 = []
+    for c in range(2):
+        got, _ = wide_check(f"stream32_{len(offsets32)}x{BLOCKSIZE}_channel{c}", words32,
+                            pos, fd.side_channel_bps(assignment, c, 32, 2), BLOCKSIZE)
+        rows32.append((got[1], *fd.restore_inputs(got[0], DECODE_MAXORD)))
+        pos = got[2]
+    rargs32 = (*stack_rows(rows32), BLOCKSIZE, DECODE_MAXORD)
+    xk, xp = rr.restore_scan(*rargs32), fd.restore_scan(*rargs32)
+    torch.cuda.synchronize()
+    wcases.append({"case": f"stream32_stacked_int64_res_{2 * len(offsets32)}x{BLOCKSIZE}",
+                   "restore_scan_max_abs_err": err(xk, xp)})
+    del xk, xp, rows32, rargs32
+    # the guards: the fold strings (the wide scan has no fold guard), a unary
+    # run of 60 zeros, and VERBATIM 32-bit samples that spend 128 bits a step
+    # against a 96-bit refill
+    guard_strings = dict(fold_guard_words())
+    guard_strings["verbatim32_overspend"] = verbatim_words(32, 64)
+    for name, w in guard_strings.items():
+        wbits = 32 if name.startswith("verbatim") else 16
+        T_g = 64 if name.startswith("verbatim") else 8
+        got, _ = wide_check(f"guard_{name}", torch.as_tensor(w, device=dev),
+                            torch.zeros(1, dtype=torch.int64, device=dev),
+                            torch.full((1,), wbits, dtype=torch.int64, device=dev), T_g)
+        want_ovf = name in ("unary_60", "verbatim32_overspend")
+        if bool(got[3][0]) != want_ovf:
+            raise AssertionError(f"the wide scan's overflow flag is wrong on {name}")
+        wcases[-1]["ovf"] = want_ovf
+    # 512 random starts in random words with zero runs (phase 6's generator)
+    got, _ = wide_check(f"random_{len(rstarts)}x{BLOCKSIZE}", *rargs_rnd[:3], BLOCKSIZE)
+    rnd = (got[1], *fd.restore_inputs(got[0], DECODE_MAXORD), BLOCKSIZE, DECODE_MAXORD)
+    xk, xp = rr.restore_scan(*rnd), fd.restore_scan(*rnd)
+    torch.cuda.synchronize()
+    wcases[-1]["restore_scan_max_abs_err"] = err(xk, xp)
+    del got, rnd, xk, xp
+    for cse in wcases:
+        if any(v for k, v in cse.items() if k.endswith("max_abs_err")):
+            raise AssertionError(f"the wide scan or the restore disagrees on {cse}")
+    # time: the kernel on channel 0 of the 512 real frames; the plain
+    # version's time is its checking call above
+    wpos0, wcbps0, wide_end0, wide_plain_s = wide_timing[0]
+    wide_ms = time_ms(lambda: rs.subframe_scan(words, wpos0, wcbps0, BLOCKSIZE,
+                                               DECODE_MAXORD, wide=True))
+    wide_plain_ms = wide_plain_s * 1e3
+    # the bytes the function must move: the subframes' bits read once, res
+    # (int64 in the wide scan) written once, the per-frame inputs and outputs
+    wsub_bytes = int(((wide_end0 - wpos0).sum() + 7) // 8)
+    wide_bytes = (wsub_bytes + DECODE_B * BLOCKSIZE * 8
+                  + DECODE_B * (16 + 9 * 8 + 5 + 2 * DECODE_MAXORD * 8 + 9))
+    wide_bound_ms = wide_bytes / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "kernels_wide", "card": card, "cases": wcases,
+          "timing_shape": {"B": DECODE_B, "T": BLOCKSIZE, "maxord": DECODE_MAXORD},
+          "wide_scan": {"kernel_ms": wide_ms, "plain_ms": wide_plain_ms,
+                        "bound_ms": wide_bound_ms, "bytes": wide_bytes,
+                        "subframe_bytes": wsub_bytes}})
+
+    # --- 12. kernels line ---------------------------------------------------
     def pack_row(name, merged, replaces, main_launches):
         row = pack_rows[merged]
         t512, t64 = row["timing"]["B512"], row["timing"]["B64"]
@@ -966,10 +1379,17 @@ def main() -> None:
         "source": "flac_tpu_torch/csrc/restore_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:628",
         "launches": decode_launches[1], "bit_exact": True,
-        "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases),
+        "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases + wcases),
         "ms": restore_ms, "plain_ms": restore_plain_ms, "bound_ms": restore_bound_ms,
         "bound_by": "bytes" if restore_bytes_ms >= restore_ops_ms else "operations",
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "residual_scan_wide", "route": "cuda", "kernel": "subframe_scan<wide>",
+        "source": "flac_tpu_torch/csrc/residual_scan.cu",
+        "replaces": "flac_tpu/decode/frame_decoder.py:484-595, :590",
+        "launches": wide_decode_launches, "bit_exact": True,
+        "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in wcases),
+        "ms": wide_ms, "plain_ms": wide_plain_ms, "bound_ms": wide_bound_ms,
+        "bound_by": "bytes", "library_ms": None}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

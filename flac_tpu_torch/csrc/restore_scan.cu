@@ -8,10 +8,12 @@
 // in int64 (wrapping, as XLA's int64 does); rows that are not coded give 0
 // (:622-623). The taps run to `order`, not to maxord: flac_tpu masks the
 // coefficients j >= order to 0 (:608), so the sum is the same. A FLAC
-// predictor has at most 32 taps, and so does this kernel.
+// predictor has at most 32 taps, and so does this kernel. res is int32
+// from the narrow residual scan and int64 from the wide one (whose values
+// can pass 32 bits): one instantiation each.
 //
 // Bound: the larger of the bytes (res read once, x written once: R*T*(4+8)
-// for R rows) over 3.35 TB/s and the int64 multiply-adds (R*(T-order)*order)
+// for R rows, R*T*(8+8) with int64 res) over 3.35 TB/s and the int64 multiply-adds (R*(T-order)*order)
 // over the card's int32 multiply-add rate; at level 5 the bytes bound it.
 // Each row is one serial chain of T dependent samples, so the design keeps
 // that chain short and everything else off it:
@@ -41,14 +43,18 @@ constexpr int kMaxOrder = 32;  // FLAC's largest predictor order
 constexpr int kRows = 32;      // rows a block: one warp, one row a lane
 constexpr int kTile = 32;      // samples a staged tile
 
+template <typename Res>
 struct Tiles {
-  int32_t res[2][kRows][kTile + 1];  // +1: a lane's row and a row's lanes
-  int64_t x[kRows][kTile + 1];       // both hit distinct banks
+  Res res[2][kRows][kTile + 1];  // +1: a lane's row and a row's lanes
+  int64_t x[kRows][kTile + 1];   // both hit distinct banks
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+// one element of sizeof(T) (4 or 8) bytes from device to shared memory
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"((int)sizeof(T))
                : "memory");
 }
 
@@ -63,19 +69,20 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // stage samples [t0, t0 + kTile) of the block's rows: lane l reads sample
 // t0 + l of each row in turn
-__device__ __forceinline__ void stage_res(Tiles& sm, int buf, const int32_t* res,
+template <typename Res>
+__device__ __forceinline__ void stage_res(Tiles<Res>& sm, int buf, const Res* res,
                                           int64_t row0, int64_t R, int32_t T,
                                           int32_t t0, int lane) {
   const int32_t t = t0 + lane;
 #pragma unroll 4
   for (int r = 0; r < kRows; ++r)
-    if (row0 + r < R && t < T) cp_async4(&sm.res[buf][r][lane], res + (row0 + r) * T + t);
+    if (row0 + r < R && t < T) cp_async(&sm.res[buf][r][lane], res + (row0 + r) * T + t);
 }
 
 // one sample of the recurrence: the taps summed oldest first
-template <int W>
+template <int W, typename Res>
 __device__ __forceinline__ int64_t predict(const int64_t (&c)[W],
-                                           const int64_t (&h)[W], int32_t r,
+                                           const int64_t (&h)[W], Res r,
                                            int sh) {
   uint64_t acc = 0;  // unsigned: the wrap is defined
 #pragma unroll
@@ -90,8 +97,8 @@ __device__ __forceinline__ void push(int64_t (&h)[W], int64_t v) {
   h[0] = v;
 }
 
-template <int W>
-__device__ void restore_rows(Tiles& sm, const int32_t* __restrict__ res,
+template <int W, typename Res>
+__device__ void restore_rows(Tiles<Res>& sm, const Res* __restrict__ res,
                              const int64_t* __restrict__ coeffs,
                              const int64_t* __restrict__ warm,
                              int64_t* __restrict__ x, int64_t row0, int64_t R,
@@ -119,7 +126,7 @@ __device__ void restore_rows(Tiles& sm, const int32_t* __restrict__ res,
     cp_async_wait<1>();
     __syncwarp();
     const int32_t tn = min(kTile, T - t0);
-    const int32_t* rr = sm.res[buf][lane];
+    const Res* rr = sm.res[buf][lane];
     int64_t* xr = sm.x[lane];
     if (tn == kTile && t0 >= order_max) {
       // every lane past its warmup: the unrolled tile
@@ -149,12 +156,13 @@ __device__ void restore_rows(Tiles& sm, const int32_t* __restrict__ res,
   }
 }
 
+template <typename Res>
 __global__ void __launch_bounds__(kRows) restore_scan_kernel(
-    const int32_t* __restrict__ res, const int64_t* __restrict__ coeffs,
+    const Res* __restrict__ res, const int64_t* __restrict__ coeffs,
     const int64_t* __restrict__ order_in, const int64_t* __restrict__ shift_in,
     const int64_t* __restrict__ warm, const uint8_t* __restrict__ coded_in,
     int64_t* __restrict__ x, int64_t R, int32_t T, int32_t maxord) {
-  __shared__ Tiles sm;
+  __shared__ Tiles<Res> sm;
   const int lane = threadIdx.x;
   const int64_t row0 = (int64_t)blockIdx.x * kRows;
   const int64_t b = row0 + lane;
@@ -197,20 +205,26 @@ __global__ void __launch_bounds__(kRows) restore_scan_kernel(
 
 }  // namespace
 
-// res int32 [R, T]; coeffs, warm int64 [R, maxord]; order, shift int64 [R];
-// is_coded bool [R]. Writes x int64 [R, T]. Launches on `stream`; returns
-// cudaGetLastError().
+// res [R, T] (int32, or int64 when res64 != 0); coeffs, warm int64 [R,
+// maxord]; order, shift int64 [R]; is_coded bool [R]. Writes x int64 [R, T].
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int flac_restore_scan(const void* res, const void* coeffs,
                                  const void* order, const void* shift,
                                  const void* warm, const void* is_coded,
                                  void* x, int32_t rows, int32_t T,
-                                 int32_t maxord, void* stream) {
+                                 int32_t maxord, int32_t res64, void* stream) {
   if (rows > 0) {
     const int blocks = (rows + kRows - 1) / kRows;
-    restore_scan_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)res, (const int64_t*)coeffs, (const int64_t*)order,
-        (const int64_t*)shift, (const int64_t*)warm, (const uint8_t*)is_coded,
-        (int64_t*)x, rows, T, maxord);
+    if (res64)
+      restore_scan_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(
+          (const int64_t*)res, (const int64_t*)coeffs, (const int64_t*)order,
+          (const int64_t*)shift, (const int64_t*)warm, (const uint8_t*)is_coded,
+          (int64_t*)x, rows, T, maxord);
+    else
+      restore_scan_kernel<<<blocks, kRows, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)res, (const int64_t*)coeffs, (const int64_t*)order,
+          (const int64_t*)shift, (const int64_t*)warm, (const uint8_t*)is_coded,
+          (int64_t*)x, rows, T, maxord);
   }
   return (int)cudaGetLastError();
 }

@@ -14,16 +14,20 @@ is two hand-written CUDA kernels on a GPU:
 - the fixed/LPC restore (`restore_scan_kernel`, csrc/restore_scan.cu), the
   port of `_restore_scan`, one launch over every channel's rows.
 
-Each has a plain PyTorch version here (`subframe_scan`, the composition of
-`read_subframe_header` and `narrow_residual_scan`; `restore_scan`), which
-CPU tensors take and which the tests hold against flac_tpu. Frames the scan
-flags (`unary_overflow`) and variable-geometry frames (the stream's final
-partial frame) are the host decoder's; the stream layer (decode.stream)
-routes them there.
+The scan has two forms, as in flac_tpu (`_use_narrow_scan`): the narrow one
+(8 int32 limbs) for streams of at most 26 bits, and the wide one (4 int64
+limbs, `_decode_subframe`'s wide branch) for wider streams or on request;
+both are instantiations of the same kernel.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-the wide scan for streams of more than 26 bits, and per-frame header widths
-(`dynamic_header_ext`, variable-blocksize streams).
+Each has a plain PyTorch version here (`subframe_scan`, the composition of
+`read_subframe_header` and `narrow_residual_scan` or `wide_residual_scan`;
+`restore_scan`), which CPU tensors take and which the tests hold against
+flac_tpu. Frames the scan flags (`unary_overflow`) and variable-geometry
+frames (the stream's final partial frame) are the host decoder's; the
+stream layer (decode.stream) routes them there.
+
+Not ported yet: per-frame header widths (`dynamic_header_ext`,
+variable-blocksize streams; NotImplementedError names its ROADMAP item).
 """
 
 from __future__ import annotations
@@ -64,7 +68,9 @@ class DecoderGeometry:
     sample_rate: int
     max_lpc_order: int = 32
     check_assignment: bool = True
-    # "auto" obeys FLAC_TPU_SCAN=narrow|wide; only the narrow scan is ported
+    # "narrow" (8 int32 limbs), "wide" (4 int64 limbs) or "auto", which
+    # obeys FLAC_TPU_SCAN=narrow|wide and defaults to narrow; streams of
+    # more than 26 bits always take the wide scan
     scan_impl: str = "auto"
     dynamic_header_ext: bool = False
 
@@ -91,16 +97,20 @@ class _HeaderCfg:
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported to flac_tpu_torch yet (ROADMAP queue 1 item 6)")
+        f"{what} is not ported to flac_tpu_torch yet (ROADMAP queue 1 item 7)")
 
 
 def _use_narrow_scan(geom: DecoderGeometry) -> bool:
-    """The int32-limb scan serves streams of at most 26 bits, as in
-    flac_tpu; the wide scan it would take otherwise is not ported."""
-    forced = os.environ.get("FLAC_TPU_SCAN") if geom.scan_impl == "auto" else None
-    if geom.bits_per_sample > 26 or geom.scan_impl == "wide" or forced == "wide":
-        _not_ported("the wide residual scan (streams over 26 bits, "
-                    "scan_impl='wide', FLAC_TPU_SCAN=wide)")
+    """flac_tpu's rule: the int32-limb scan serves streams of at most 26
+    bits (so verbatim and escaped widths stay <= 31 bits); then
+    `scan_impl`, then FLAC_TPU_SCAN=narrow|wide; else narrow."""
+    if geom.bits_per_sample > 26:
+        return False
+    if geom.scan_impl in ("narrow", "wide"):
+        return geom.scan_impl == "narrow"
+    forced = os.environ.get("FLAC_TPU_SCAN")
+    if forced in ("narrow", "wide"):
+        return forced == "narrow"
     return True
 
 
@@ -330,6 +340,124 @@ def narrow_residual_scan(words, pos, T, is_coded, is_verb, ebps, order,
     return res, pos, ovf
 
 
+WIDE_LIMBS = 4   # 64-bit limbs of the wide scan's 256-bit window
+
+
+def _srl64(a: torch.Tensor, n) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns by n in [0, 63] (torch's
+    >> is arithmetic): the arithmetic shift with the sign copies masked."""
+    n = torch.as_tensor(n, dtype=_I64, device=a.device)
+    one = torch.ones((), dtype=_I64, device=a.device)
+    return (a >> n) & (((one << (63 - n)) << 1) - 1)
+
+
+def wide_residual_scan(words, pos, T, is_coded, is_verb, ebps, order,
+                       plen, pesc, ps):
+    """The plain PyTorch wide residual/verbatim scan, step for step
+    flac_tpu's wide branch of `_decode_subframe` (frame_decoder.py:484-595):
+    U=4 samples a step from a 256-bit window of four 64-bit limbs carried
+    across steps (held as int64 bit patterns), each field read by one
+    `take(n)` (n <= 63 bits) that slides the window, up to 3 word refills
+    at the end of each step. Values are int64, so verbatim samples of up to
+    33 bits and Rice folds up to 47 * 2^30 come out whole.
+
+    `ovf` raises (the frame goes to the host decoder) on a unary run of 48
+    zeros or more, or a step that spends more bits than its window held.
+
+    The arguments are narrow_residual_scan's. Returns (res [B, T] int64,
+    pos [B] int64, ovf [B] bool).
+    """
+    dev = pos.device
+    n = words.shape[0]
+    L = WIDE_LIMBS
+    limb = torch.arange(L, device=dev)
+
+    def gw(i):
+        return words[_word_index(i, n)].to(_I64) & _MASK32
+
+    ebps, order, plen, pesc, ps = (x.to(_I64) for x in (ebps, order, plen, pesc, ps))
+    pos = pos.to(_I64)
+    wi0 = pos >> 5
+    off0 = pos & 31
+    a = torch.stack([(gw(wi0 + 2 * j) << 32) | gw(wi0 + 2 * j + 1) for j in range(L)]
+                    + [torch.zeros_like(pos)], dim=1)                # [B, 5]
+    offc = torch.clamp(off0, min=1)[:, None]
+    win = torch.where(off0[:, None] > 0,
+                      (a[:, :L] << offc) | _srl64(a[:, 1:], 64 - offc), a[:, :L])
+    navail = 256 - off0
+    wpos = wi0 + 8
+    zero = torch.zeros_like(pos)
+    k, rawlen, ovf = zero, zero, zero != 0
+    # t mod 0 is 0, as flac_tpu's jnp.mod gives it
+    ps_safe = torch.where(ps == 0, 1, ps)
+
+    def take(win, nbits):
+        """(the next nbits (<= 63; <= 0 reads 0) bits, the slid window)."""
+        on = nbits > 0
+        nn = torch.clamp(nbits, 1, 63)
+        nxt = torch.nn.functional.pad(win[:, 1:], (0, 1))
+        slid = (win << nn[:, None]) | _srl64(nxt, 64 - nn[:, None])
+        return (torch.where(on, _srl64(win[:, 0], 64 - nn), 0),
+                torch.where(on[:, None], slid, win))
+
+    outs = []
+    for t0 in range(0, T, SCAN_U):
+        spent = zero
+        for t in range(t0, min(t0 + SCAN_U, T)):
+            boundary = is_coded & (t % ps_safe == 0)
+            nb = torch.where(boundary, plen, 0)
+            pv, win = take(win, nb)
+            k = torch.where(boundary, pv, k)
+            isesc_b = boundary & (k == pesc)
+            nb2 = torch.where(isesc_b, 5, 0)
+            rl, win = take(win, nb2)
+            rawlen = torch.where(isesc_b, rl, rawlen)
+            esc = k == pesc
+            in_res = is_coded & (t >= order)
+            rice_on = in_res & ~esc
+            l0 = win[:, 0]
+            hi = _srl64(l0, 32)
+            z = torch.where(hi != 0, _clz32(hi), 32 + _clz32(l0 & _MASK32))
+            z = torch.where(l0 == 0, 64, z)
+            ovf = ovf | (rice_on & (z >= 48))
+            q = torch.where(rice_on, torch.clamp(z, max=47), 0)
+            nq = torch.where(rice_on, q + 1, 0)
+            _, win = take(win, nq)
+            nk = torch.where(rice_on, k, 0)
+            lsb, win = take(win, nk)
+            folded = (q << torch.clamp(k, min=0)) | lsb
+            rice_val = (folded >> 1) ^ -(folded & 1)
+            nr = torch.where(in_res & esc, rawlen, 0)
+            rv, win = take(win, nr)
+            nv = torch.where(is_verb, ebps, 0)
+            vv, win = take(win, nv)
+            outs.append(torch.where(rice_on, rice_val,
+                        torch.where(in_res & esc, _sign_extend(rv, nr),
+                        torch.where(is_verb, _sign_extend(vv, nv), 0))))
+            spent = spent + nb + nb2 + nq + nk + nr + nv
+        # all consumed bits must have been inside the valid window
+        ovf = ovf | (spent > navail)
+        navail = torch.clamp(navail - spent, min=0)
+        # refill: insert up to 3 words at bit offset `navail`; limb j takes
+        # the word's top bits, limb j + 1 the rest
+        for _ in range(SCAN_NLOAD):
+            can = navail <= 256 - 32
+            wv = gw(wpos)
+            j = navail >> 6
+            q = navail & 63
+            part0 = torch.where(q <= 32, wv << torch.clamp(32 - q, 0, 63),
+                                _srl64(wv, torch.clamp(q - 32, 0, 63)))
+            part1 = torch.where(q > 32, wv << torch.clamp(96 - q, 33, 63), 0)
+            at0 = can[:, None] & (j[:, None] == limb[None, :])
+            at1 = can[:, None] & (j[:, None] + 1 == limb[None, :])
+            win = (win | torch.where(at0, part0[:, None], 0)
+                   | torch.where(at1, part1[:, None], 0))
+            navail = navail + torch.where(can, 32, 0)
+            wpos = wpos + torch.where(can, 1, 0)
+        pos = pos + spent
+    return torch.stack(outs, dim=1), pos, ovf
+
+
 # ---------------------------------------------------------------------------
 # the fixed/LPC restore
 # ---------------------------------------------------------------------------
@@ -340,8 +468,9 @@ def restore_scan(res, coeffs, order, shift, warm, is_coded, T, maxord):
     x[t] = warm[t]; then x[t] = res[t] + ((sum_j c_j x[t-1-j]) >> shift),
     int64 throughout; frames that are not coded give 0.
 
-    res [B, T] int32; coeffs, warm [B, maxord] int64; order, shift [B]
-    int64; is_coded [B] bool. Returns x [B, T] int64."""
+    res [B, T] int32 (the narrow scan's) or int64 (the wide scan's);
+    coeffs, warm [B, maxord] int64; order, shift [B] int64; is_coded [B]
+    bool. Returns x [B, T] int64."""
     B = res.shape[0]
     dev = res.device
     jgrid = torch.arange(maxord, device=dev)
@@ -476,28 +605,30 @@ def restore_inputs(sub: dict, maxord: int):
     return coeffs, sub["order"], rshift, sub["warm"], sub["is_coded"]
 
 
-def subframe_scan(words, pos, cbps, T: int, maxord: int):
+def subframe_scan(words, pos, cbps, T: int, maxord: int, wide: bool = False):
     """The plain subframe scan of every frame: `read_subframe_header` at
-    `pos`, then `narrow_residual_scan` from the header's end. Returns (sub,
-    res [B, T] int32, pos [B] int64 after the samples, ovf [B] bool); `sub`
-    is read_subframe_header's dict."""
+    `pos`, then `narrow_residual_scan` (or, `wide`, `wide_residual_scan`)
+    from the header's end. Returns (sub, res [B, T] (int32 narrow, int64
+    wide), pos [B] int64 after the samples, ovf [B] bool); `sub` is
+    read_subframe_header's dict."""
     sub = read_subframe_header(words, pos, cbps, T, maxord)
-    res, pos, ovf = narrow_residual_scan(
+    scan = wide_residual_scan if wide else narrow_residual_scan
+    res, pos, ovf = scan(
         words, sub["pos"], T, sub["is_coded"], sub["is_verb"], sub["ebps"],
         sub["order"], sub["plen"], sub["pesc"], sub["ps"])
     return sub, res, pos, ovf
 
 
-def subframe_scan_kernel(words, pos, cbps, T: int, maxord: int):
+def subframe_scan_kernel(words, pos, cbps, T: int, maxord: int, wide: bool = False):
     """subframe_scan done by the hand-written CUDA kernel
-    (kernels.residual_scan), which parses the subframe header and scans
-    the samples in one launch — the counterpart of flac_tpu's
-    `_decode_subframe` parse and `_narrow_residual_scan`. CUDA tensors
-    launch the kernel (a failure raises); CPU tensors take the plain
-    version."""
+    (kernels.residual_scan, its narrow or wide instantiation), which parses
+    the subframe header and scans the samples in one launch — the
+    counterpart of flac_tpu's `_decode_subframe` with
+    `_narrow_residual_scan` or its wide branch. CUDA tensors launch the
+    kernel (a failure raises); CPU tensors take the plain version."""
     if pos.device.type == "cpu":
-        return subframe_scan(words, pos, cbps, T, maxord)
-    return _residual_scan.subframe_scan(words, pos, cbps, T, maxord)
+        return subframe_scan(words, pos, cbps, T, maxord, wide)
+    return _residual_scan.subframe_scan(words, pos, cbps, T, maxord, wide=wide)
 
 
 def finish_subframe(sub: dict, res, x):
@@ -526,12 +657,11 @@ def build_frame_decoder(geom: DecoderGeometry,
     if geom.dynamic_header_ext:
         _not_ported("per-frame header widths (dynamic_header_ext, "
                     "variable-blocksize streams)")
-    _use_narrow_scan(geom)
-    return _build_frame_decoder(geom, device)
+    return _build_frame_decoder(geom, device, not _use_narrow_scan(geom))
 
 
 @functools.lru_cache(maxsize=64)
-def _build_frame_decoder(geom: DecoderGeometry, device: torch.device):
+def _build_frame_decoder(geom: DecoderGeometry, device: torch.device, wide: bool):
     T = geom.blocksize
     Ch = geom.channels
     bps = geom.bits_per_sample
@@ -549,7 +679,7 @@ def _build_frame_decoder(geom: DecoderGeometry, device: torch.device):
         any_ovf = torch.zeros(pos.shape, dtype=torch.bool, device=device)
         for c in range(Ch):
             cbps = side_channel_bps(assignment, c, bps, Ch)
-            sub, res, pos, ovf = subframe_scan_kernel(words, pos, cbps, T, maxord)
+            sub, res, pos, ovf = subframe_scan_kernel(words, pos, cbps, T, maxord, wide)
             any_ovf = any_ovf | ovf
             subs.append(sub)
             ress.append(res)

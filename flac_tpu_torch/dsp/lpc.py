@@ -3,8 +3,9 @@
 
 Every constant and arange carries the dtype flac_tpu gets under
 jax_enable_x64 (float64 scalars, int64 aranges), so the two packages run the
-same arithmetic. The wide residual (`lpc_residual_limbs`) and the
-decode-side `lpc_restore` are not ported yet.
+same arithmetic, and the two-int32-limb wide residual
+(`lpc_residual_limbs`) of the 24-bit family. The decode-side `lpc_restore`
+is not ported (the frame decoder has its own restore).
 """
 
 from __future__ import annotations
@@ -217,3 +218,47 @@ def lpc_residual(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
     t = torch.arange(T, device=x.device)
     res = torch.where(t >= order[..., None], xw - pred, 0)
     return res.to(torch.int32)
+
+
+def lpc_residual_limbs(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
+                       shift: torch.Tensor, max_order: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The wide-datapath residual from two int32 limbs, flac_tpu's
+    `lpc_residual_limbs` (lpc.c:531 is the reference's _wide path).
+
+    x = (x >> 12) * 2^12 + (x & 0xFFF); the two partial dot products are
+    summed in int32 (wrapping as int32 does):
+
+        acc = A_hi*2^12 + A_lo,  H = A_hi + (A_lo>>12),  r = A_lo & 0xFFF
+        acc>>s = H >> (s-12)                    for s >= 12
+               = (H << (12-s)) + (r >> s)       for s <  12
+
+    The caller gates on the static bound that keeps the limb sums in int32
+    (effective bps <= 25, precision <= 15, order <= 16). Returns (res [...,
+    T] int32, ovf [...] bool): `ovf` marks candidates whose s < 12
+    prediction left int32 (|H| >= 2^min(19+s, 30) at a valid sample); the
+    encoder masks them out, so it must be flac_tpu's exactly.
+    """
+    T = x.shape[-1]
+    x = x.to(torch.int32)
+    xl = x & 0xFFF
+    xh = x >> 12
+    shape = torch.broadcast_shapes(x.shape, qlp.shape[:-1] + (T,))
+    acc_lo = torch.zeros(shape, dtype=torch.int32, device=x.device)
+    acc_hi = torch.zeros_like(acc_lo)
+    for j in range(1, max_order + 1):
+        coef = qlp[..., j - 1].to(torch.int32)[..., None]
+        active = (j <= order)[..., None]
+        acc_lo = acc_lo + torch.where(active, coef * torch.roll(xl, j, dims=-1), 0)
+        acc_hi = acc_hi + torch.where(active, coef * torch.roll(xh, j, dims=-1), 0)
+    H = acc_hi + (acc_lo >> 12)
+    r = acc_lo & 0xFFF  # >= 0: its right shift is a logical one
+    s = shift[..., None].to(torch.int32)
+    pred_ge = H >> torch.clamp(s - 12, min=0)
+    pred_lt = (H << torch.clamp(12 - s, min=0)) + (r >> torch.clamp(s, max=12))
+    pred = torch.where(s >= 12, pred_ge, pred_lt)
+    valid = torch.arange(T, device=x.device) >= order[..., None]
+    res = torch.where(valid, x - pred, 0)
+    lim = torch.ones_like(s) << torch.clamp(19 + s, max=30)
+    ovf = ((s < 12) & (H.abs() >= lim) & valid).any(dim=-1)
+    return res, ovf

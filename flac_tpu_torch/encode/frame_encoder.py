@@ -11,12 +11,14 @@ reduced by the reference's strict-< argmin rules, and the bitstream is
 assembled by the prefix-sum field packer (encode.packer), whose word fill is
 the hand-written CUDA kernel on a GPU.
 
-Ported so far: the non-exhaustive presets without the -p precision sweep
-(levels 0-6), streams whose residual datapath is 32-bit (stream_encoder.c:
-888), including the fractional final block. The rest raises
-NotImplementedError naming its ROADMAP item; nothing silently computes
-something else. The device follows the tensors; `build_frame_encoder`
-takes `device=None`, meaning CUDA (see device.py).
+Every preset (levels 0-8, the exhaustive model search of 7-8 included),
+the -p precision sweep, escape coding, and both residual datapaths
+(stream_encoder.c:888): the 32-bit one, and the wide one of streams with
+bps + log2(T) + 1 > 30, through two int32 limbs where they provably fit
+(the 24-bit family) and int64 otherwise; the fractional final block too.
+The dense compaction path (`build_frame_encoder_dense`) is not ported
+(ROADMAP queue 1 item 12). The device follows the tensors;
+`build_frame_encoder` takes `device=None`, meaning CUDA (see device.py).
 """
 
 from __future__ import annotations
@@ -238,6 +240,12 @@ def max_frame_bytes(cfg: EncoderConfig, blocksize: int) -> int:
     return (bits // 8 + 256 + 3) & ~3
 
 
+def _abs_plane(res: torch.Tensor, narrow: bool) -> torch.Tensor:
+    """|res| of a [.., T] residual plane: int32 where the datapath bounds it
+    (narrow), else int64 (the int32 |INT32_MIN| would wrap)."""
+    return res.abs() if narrow else res.to(_I64).abs()
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -278,10 +286,12 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
 
     `blocksize` overrides cfg.blocksize for the stream's final partial frame;
     `packer_impl` selects the word fill (see resolve_packer_impl).
+    FLAC_TPU_WIDE=int64 is read here too (see _build_frame_encoder).
     """
     device = resolve_device(device)
     return _build_frame_encoder(cfg, blocksize, device,
-                                resolve_packer_impl(packer_impl, device))[0]
+                                resolve_packer_impl(packer_impl, device),
+                                _wide_int64())[0]
 
 
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
@@ -292,17 +302,21 @@ def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
     nbits) -> (words, total_bits) the word fill and CRC-16."""
     device = resolve_device(device)
     return _build_frame_encoder(cfg, blocksize, device,
-                                resolve_packer_impl(packer_impl, device))[1:]
+                                resolve_packer_impl(packer_impl, device),
+                                _wide_int64())[1:]
 
 
-def _not_ported(what: str, item: int = 4):
-    raise NotImplementedError(
-        f"{what} is not ported to flac_tpu_torch yet (ROADMAP queue 1 item {item})")
+def _wide_int64() -> bool:
+    """FLAC_TPU_WIDE=int64 sends the wide datapath through int64 even where
+    the two-limb residual applies, as in flac_tpu. Read at build time so
+    that it is part of the build cache's key."""
+    return os.environ.get("FLAC_TPU_WIDE") == "int64"
 
 
 @functools.lru_cache(maxsize=64)
 def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
-                         device: torch.device, packer_impl: str):
+                         device: torch.device, packer_impl: str,
+                         wide_int64: bool):
     T = blocksize or cfg.blocksize
     is_fractional = T != cfg.blocksize
     Ch = cfg.channels
@@ -316,16 +330,20 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
     # (process_subframe_, stream_encoder.c:3206)
     do_lpc = maxord > 0 and T >= C.MAX_FIXED_ORDER
     A = len(cfg.apodizations) if do_lpc else 0
+    exhaustive = cfg.do_exhaustive_model_search
     use_wide = bps_stream + (T.bit_length() - 1) + 1 > 30  # stream_encoder.c:888
-    if cfg.do_exhaustive_model_search:
-        _not_ported("the exhaustive model search (levels 7-8)")
-    if cfg.do_qlp_coeff_prec_search:
-        _not_ported("the -p qlp precision search")
-    if use_wide:
-        _not_ported("the wide (int64 / wide_limbs) residual datapath")
-    if cfg.do_escape_coding:
-        _not_ported("escape coding")
-    narrow_t = True  # the datapath is 32-bit (not use_wide)
+    # the two-int32-limb LPC residual (dsp.lpc.lpc_residual_limbs) where its
+    # limb sums provably fit int32 (the 24-bit family); the [.., T] planes
+    # then stay int32 and only the reductions widen
+    bps_worst = bps_stream + (1 if use_ms else 0)
+    pmax = C.MAX_QLP_COEFF_PRECISION
+    wide_limbs = (use_wide and bps_worst <= 25 and maxord >= 1
+                  and maxord * (1 << (pmax + max(bps_worst - 14, 0))) < (1 << 31)
+                  and maxord * (1 << (pmax + 11)) < (1 << 31)
+                  and not wide_int64)
+    # [.., T]-sized elementwise math stays int32 when the whole datapath is
+    # 32-bit or the limb path bounds the values
+    narrow_t = (not use_wide) or wide_limbs
     if is_fractional:
         max_po = 0
     else:
@@ -401,18 +419,20 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
             res_all = dsp_fixed.fixed_residuals_all_orders(x)     # [B, K, 5, T]
             orders5 = torch.arange(5, dtype=_I32, device=device)
             folded = rice.fold_residual(res_all, narrow=narrow_t)
-            absres = res_all.abs()
+            absres = _abs_plane(res_all, narrow_t)
             validt = tvec[None, None, None, :] >= orders5[None, None, :, None]
             absres = torch.where(validt, absres, 0)
             folded = torch.where(validt, folded, 0)
             sugg = _suggested_param(rbps_fixed, limit)
             rs = rice.rice_search(absres, folded, orders5.expand(errs.shape).to(_I32),
                                   sugg, T, min_po, max_po, limit,
+                                  do_escape=cfg.do_escape_coding,
                                   compute_exact=False)
             bits = (pre[..., None] + orders5.to(_I64) * bps_eff[..., None]
                     + rs.approx_bits)
-            active = orders5[None, None, :] == guess_fixed[..., None]
-            active = active & (orders5[None, None, :] <= max_fixed)
+            active = orders5[None, None, :] <= max_fixed
+            if not exhaustive:  # the estimator's order only
+                active = active & (orders5[None, None, :] == guess_fixed[..., None])
             active = active & (rbps_fixed < bps_eff[..., None].to(_F32))
             active = active & ~is_const[..., None]
             bits = torch.where(active, bits, INF_BITS)
@@ -423,6 +443,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     type=C.SUBFRAME_TYPE_FIXED,
                     order=torch.full((B, K), o, dtype=_I32, device=device),
                     po=rs.partition_order[..., o], params=rs.params_leaf[..., o, :],
+                    raws=rs.raw_bits_leaf[..., o, :],
                     rice2=rs.is_rice2[..., o], qlp=None, prec=None, shift=None))
 
         # --- LPC -----------------------------------------------------------
@@ -432,10 +453,17 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
             autoc_ok = autoc[..., 0] != 0.0
             coeffs, lerr, lvalid = dsp_lpc.levinson(autoc, maxord)
             prec0 = cfg.qlp_coeff_precision
-            overhead = (bps_eff[..., None] + prec0).to(_F64)      # [B,K,1]
+            overhead = (bps_eff[..., None]
+                        + (C.MIN_QLP_COEFF_PRECISION if cfg.do_qlp_coeff_prec_search
+                           else prec0)).to(_F64)                  # [B,K,1]
             guess_lpc = dsp_lpc.compute_best_order(
                 lerr, lvalid, T, overhead.expand(lerr.shape[:-1]))
-            orders = guess_lpc[..., None]                         # [B,K,A,1]
+            if exhaustive:  # every order 1..maxord of every window
+                orders = torch.arange(1, maxord + 1, dtype=_I32, device=device
+                                      ).expand(B, K, A, maxord)
+            else:
+                orders = guess_lpc[..., None]                     # [B,K,A,1]
+            O = orders.shape[-1]
             idx = (orders - 1).long()
             err_o = torch.gather(lerr, -1, idx)
             valid_o = torch.gather(lvalid, -1, idx)
@@ -443,48 +471,98 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 err_o, (T - orders).to(_F64))
             sugg = _suggested_param(rbps_lpc, limit)
             ilog2_o = _ilog2(orders)
-            coeff_rows = torch.gather(                            # [B,K,A,1,maxord]
+            coeff_rows = torch.gather(                            # [B,K,A,O,maxord]
                 coeffs, -2, idx[..., None].expand(idx.shape + (maxord,)))
             # int32 accumulation is exact iff bps + precision + ilog2(order)
-            # <= 32 (stream_encoder.c:3592), with the static worst case
-            narrow_lpc = (bps_stream + (1 if use_ms else 0)
-                          + cfg.qlp_coeff_precision
-                          + (maxord.bit_length() - 1) <= 32)
+            # <= 32 (stream_encoder.c:3592), with the static worst case. Under
+            # -p the per-candidate caps (stream_encoder.c:3341-3345, :3583)
+            # keep that sum <= 32 whenever bps_eff <= 17.
+            if cfg.do_qlp_coeff_prec_search:
+                narrow_lpc = not use_wide and bps_worst <= 17
+            else:
+                narrow_lpc = (not use_wide
+                              and (bps_worst + cfg.qlp_coeff_precision
+                                   + (maxord.bit_length() - 1) <= 32))
             bps_b = bps_eff[..., None, None]
             base_active = (autoc_ok[..., None] & valid_o & ~is_const[..., None, None]
                            & (rbps_lpc < bps_b.to(_F64))
                            & (orders <= T - 1))
-            # quantize at the configured precision, with the bps<=16
-            # 32-bit-datapath clamp (stream_encoder.c:3583)
-            prec_arr = torch.full(orders.shape, prec0, dtype=_I32, device=device)
-            prec = torch.where(bps_b <= 16,
-                               torch.minimum(prec_arr, 32 - bps_b - ilog2_o),
-                               prec_arr)
-            qlp, shift, qok = dsp_lpc.quantize_coefficients(
-                coeff_rows, orders, prec, maxord)
-            res = dsp_lpc.lpc_residual(x[:, :, None, None, :], qlp, orders,
-                                       shift, maxord, narrow=narrow_lpc)  # [B,K,A,1,T]
-            folded_p = rice.fold_residual(res, narrow=narrow_t)
-            absres_p = res.abs()
-            validt = tvec >= orders[..., None]
-            absres_p = torch.where(validt, absres_p, 0)
-            folded_p = torch.where(validt, folded_p, 0)
-            rs = rice.rice_search(absres_p, folded_p, orders, sugg, T,
-                                  min_po, max_po, limit, compute_exact=False)
-            bits = (pre[..., None, None] + 9
-                    + orders.to(_I64) * (prec + bps_b).to(_I64)
-                    + rs.approx_bits)
-            bits = torch.where(base_active & qok, bits, INF_BITS)
+
+            def eval_precision(prec_arr):
+                """Quantize, residual and Rice search at one precision per
+                candidate (evaluate_lpc_subframe_, stream_encoder.c:3555-3652),
+                with the bps<=16 32-bit-datapath clamp (:3583)."""
+                prec_c = torch.where(bps_b <= 16,
+                                     torch.minimum(prec_arr, 32 - bps_b - ilog2_o),
+                                     prec_arr)
+                qlp_p, shift_p, qok_p = dsp_lpc.quantize_coefficients(
+                    coeff_rows, orders, prec_c, maxord)
+                if wide_limbs:
+                    res_p, ovf_p = dsp_lpc.lpc_residual_limbs(
+                        x[:, :, None, None, :], qlp_p, orders, shift_p, maxord)
+                    qok_p = qok_p & ~ovf_p
+                else:
+                    res_p = dsp_lpc.lpc_residual(
+                        x[:, :, None, None, :], qlp_p, orders, shift_p, maxord,
+                        narrow=narrow_lpc)                        # [B,K,A,O,T]
+                folded_p = rice.fold_residual(res_p, narrow=narrow_t)
+                absres_p = _abs_plane(res_p, narrow_t)
+                validt = tvec >= orders[..., None]
+                absres_p = torch.where(validt, absres_p, 0)
+                folded_p = torch.where(validt, folded_p, 0)
+                rs_p = rice.rice_search(absres_p, folded_p, orders, sugg, T,
+                                        min_po, max_po, limit,
+                                        do_escape=cfg.do_escape_coding,
+                                        compute_exact=False)
+                bits_p = (pre[..., None, None] + 9
+                          + orders.to(_I64) * (prec_c + bps_b).to(_I64)
+                          + rs_p.approx_bits)
+                bits_p = torch.where(base_active & qok_p, bits_p, INF_BITS)
+                return (bits_p, res_p, rs_p.partition_order, rs_p.params_leaf,
+                        rs_p.raw_bits_leaf, rs_p.is_rice2, qlp_p, prec_c, shift_p)
+
+            if cfg.do_qlp_coeff_prec_search:
+                # the -p sweep (stream_encoder.c:3336-3385): every precision
+                # in [MIN, MAX], capped for bps<=17 at min(32-bps-order, MAX)
+                # raised back to MIN. flac_tpu's lax.scan over precisions is
+                # a loop of whole-batch steps here; strict < keeps the LOWEST
+                # winning precision, the reference's first strict winner.
+                p_lo, p_hi = C.MIN_QLP_COEFF_PRECISION, C.MAX_QLP_COEFF_PRECISION
+                maxp = torch.where(
+                    bps_b <= 17,
+                    torch.clamp(torch.clamp(32 - bps_b - orders, max=p_hi), min=p_lo),
+                    p_hi)                                         # [B,K,A,O]
+                sh = orders.shape
+
+                def zeros(extra=(), dtype=_I32):
+                    return torch.zeros(sh + extra, dtype=dtype, device=device)
+
+                best = (torch.full(sh, INF_BITS, dtype=_I64, device=device),
+                        zeros((T,)), zeros(), zeros((nleaf,)), zeros((nleaf,)),
+                        zeros(dtype=torch.bool), zeros((maxord,)), zeros(), zeros())
+                for p in range(p_lo, p_hi + 1):
+                    cand = eval_precision(torch.full(sh, p, dtype=_I32, device=device))
+                    cand = (torch.where(p <= maxp, cand[0], INF_BITS),) + cand[1:]
+                    better = cand[0] < best[0]
+                    best = tuple(
+                        torch.where(better.reshape(sh + (1,) * (n.dim() - len(sh))), n, c)
+                        for c, n in zip(best, cand))
+            else:
+                best = eval_precision(torch.full(orders.shape, prec0, dtype=_I32,
+                                                 device=device))
+            bits, res, rs_po, rs_params, rs_raws, rs_rice2, qlp, prec, shift = best
+            # candidate order sets the strict-< tie-breaks: window-major, then
+            # ascending order
             for a in range(A):
-                cand_bits.append(bits[:, :, a, 0])
-                model_res.append(res[:, :, a, 0, :])
-                model_meta.append(dict(
-                    type=C.SUBFRAME_TYPE_LPC, order=orders[:, :, a, 0],
-                    po=rs.partition_order[:, :, a, 0],
-                    params=rs.params_leaf[:, :, a, 0, :],
-                    rice2=rs.is_rice2[:, :, a, 0],
-                    qlp=qlp[:, :, a, 0, :], prec=prec[:, :, a, 0],
-                    shift=shift[:, :, a, 0]))
+                for oi in range(O):
+                    cand_bits.append(bits[:, :, a, oi])
+                    model_res.append(res[:, :, a, oi, :])
+                    model_meta.append(dict(
+                        type=C.SUBFRAME_TYPE_LPC, order=orders[:, :, a, oi],
+                        po=rs_po[:, :, a, oi], params=rs_params[:, :, a, oi, :],
+                        raws=rs_raws[:, :, a, oi, :], rice2=rs_rice2[:, :, a, oi],
+                        qlp=qlp[:, :, a, oi, :], prec=prec[:, :, a, oi],
+                        shift=shift[:, :, a, oi]))
 
         # --- pick the best subframe per candidate channel ------------------
         # evaluation priority mirrors the reference's loop order so strict-<
@@ -523,6 +601,8 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         sel_order = torch.where(is_model, gather_meta("order", 0, _I32), 0)
         sel_po = torch.where(is_model, gather_meta("po", 0, _I32), 0)
         sel_params = gather_meta("params", 0, _I32, (nleaf,))
+        sel_raws = (gather_meta("raws", 0, _I32, (nleaf,))
+                    if cfg.do_escape_coding else None)
         sel_rice2 = is_model & gather_meta("rice2", False, torch.bool)
         sel_qlp = gather_meta("qlp", 0, _I32, (maxord,) if maxord else (1,))
         sel_prec = gather_meta("prec", 0, _I32)
@@ -533,7 +613,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
 
         # exact residual-coding bits, one [B,K,T] pass for the selection
         sel_folded = rice.fold_residual(sel_res, narrow=narrow_t)
-        sel_exact_res = rice.rice_exact_bits(sel_folded, sel_params, None,
+        sel_exact_res = rice.rice_exact_bits(sel_folded, sel_params, sel_raws,
                                              sel_order, sel_po, T, max_po)
         is_lpc_sel = sel_type == C.SUBFRAME_TYPE_LPC
         hdr_extra = torch.where(is_lpc_sel, 9, 0).to(_I64)
@@ -608,8 +688,9 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
             c_qlp = g(sel_qlp).to(_I64)
             c_prec = g(sel_prec).to(_I64)
             c_shift = g(sel_shift).to(_I64)
+            c_res = g(sel_res)                                    # [B,T]
             c_folded = torch.where(tvec >= c_order[:, None],
-                                   rice.fold_residual(g(sel_res)), 0)
+                                   rice.fold_residual(c_res), 0)
 
             is_fixed = c_type == C.SUBFRAME_TYPE_FIXED
             is_lpc = c_type == C.SUBFRAME_TYPE_LPC
@@ -664,6 +745,26 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
             param_v = torch.where(param_n > 0, k_leaf, 0)
             cw_n_coded = (c_folded >> k_t) + 1 + k_t
             cw_v_coded = (one64 << k_t) | (c_folded & ((one64 << k_t) - 1))
+            if cfg.do_escape_coding:
+                # an escaped partition: the boundary field becomes <escape
+                # parameter><5-bit raw length>, and every codeword is the
+                # residual at the raw width (stream_encoder_framing.c:478-537)
+                raw_leaf = g(sel_raws).to(_I64)                   # [B, nleaf]
+                raw_t = raw_leaf[:, :, None].expand(B, nleaf, leafsz).reshape(B, T)
+                esc_t = raw_t > 0
+                pesc_c = torch.where(
+                    c_rice2, C.ENTROPY_CODING_METHOD_PARTITIONED_RICE2_ESCAPE_PARAMETER,
+                    C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ESCAPE_PARAMETER
+                ).to(_I64)[:, None]
+                esc_leaf = raw_leaf > 0
+                param_n = torch.where(param_n > 0,
+                                      torch.where(esc_leaf, param_n + 5, param_n), 0)
+                param_v = torch.where(param_n > 0,
+                                      torch.where(esc_leaf, (pesc_c << 5) | raw_leaf,
+                                                  k_leaf), 0)
+                cw_n_coded = torch.where(esc_t, raw_t, cw_n_coded)
+                cw_v_coded = torch.where(esc_t, mask_to(c_res.to(_I64), raw_t),
+                                         cw_v_coded)
             coded_t = is_coded[:, None] & (tvec[None, :] >= c_order[:, None])
             cw_n = torch.where(coded_t, cw_n_coded,
                                torch.where(is_verb[:, None], c_bps[:, None], 0))

@@ -1,12 +1,14 @@
 """Launcher of the CUDA subframe scan (csrc/residual_scan.cu): the
 subframe-header parse and the residual/verbatim window scan in one kernel,
-the port of flac_tpu/decode/frame_decoder.py's `_decode_subframe` parse and
-`_narrow_residual_scan`.
+the port of flac_tpu/decode/frame_decoder.py's `_decode_subframe` parse with
+`_narrow_residual_scan` (the narrow instantiation) or with its wide branch
+(the wide one).
 
 `subframe_scan` takes CUDA tensors only and launches the kernel or raises;
 the routing between it and the plain PyTorch version is done by
 `decode.frame_decoder.subframe_scan_kernel`, which picks by the tensors'
-device. `launches` counts the launches of this process.
+device. `launches` counts the narrow kernel's launches of this process,
+`wide_launches` the wide kernel's.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from flac_tpu_torch.kernels import _build
 
 launches = 0
+wide_launches = 0
 
 # read_subframe_header's fields, in the kernel's argument order, with their
 # dtypes; warm and qlp are [B, maxord], the others [B]
@@ -40,16 +43,17 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
                        + [ctypes.c_void_p] * len(SUBFRAME_FIELDS)
                        + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int32] * 3 + [ctypes.c_void_p])
+                       + [ctypes.c_int32] * 4 + [ctypes.c_void_p])
     return lib
 
 
-def subframe_scan(words, pos, cbps, T: int, maxord: int):
-    """(sub, res [B, T] int32, pos [B] int64, ovf [B] bool) of one subframe
-    of each of B frames, as frame_decoder.subframe_scan returns them: words
-    [W] int32 (the stream), pos [B] (each subframe's first header bit) and
-    cbps [B] (its sample width, at most 32), all on one CUDA device."""
-    global launches
+def subframe_scan(words, pos, cbps, T: int, maxord: int, wide: bool = False):
+    """(sub, res [B, T], pos [B] int64, ovf [B] bool) of one subframe of
+    each of B frames, as frame_decoder.subframe_scan returns them: words [W]
+    int32 (the stream), pos [B] (each subframe's first header bit) and cbps
+    [B] (its sample width, at most 33), all on one CUDA device. `wide`
+    launches the wide scan, whose res is int64 (the narrow one's int32)."""
+    global launches, wide_launches
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"subframe_scan runs on CUDA tensors, got {dev}")
@@ -69,7 +73,7 @@ def subframe_scan(words, pos, cbps, T: int, maxord: int):
     sub = {name: torch.empty((B, maxord) if name in _PER_ORDER else (B,),
                              dtype=dtype, device=dev)
            for name, dtype in SUBFRAME_FIELDS}
-    res = torch.empty((B, T), dtype=torch.int32, device=dev)
+    res = torch.empty((B, T), dtype=torch.int64 if wide else torch.int32, device=dev)
     pos_out = torch.empty(B, dtype=torch.int64, device=dev)
     ovf = torch.empty(B, dtype=torch.bool, device=dev)
     lib = _lib()
@@ -78,8 +82,11 @@ def subframe_scan(words, pos, cbps, T: int, maxord: int):
         rc = lib.flac_subframe_scan(words.data_ptr(), W, pos.data_ptr(), cbps.data_ptr(),
                                     *[sub[name].data_ptr() for name, _ in SUBFRAME_FIELDS],
                                     res.data_ptr(), pos_out.data_ptr(), ovf.data_ptr(),
-                                    B, T, maxord, stream)
+                                    B, T, maxord, int(wide), stream)
     if rc != 0:
         raise RuntimeError(f"subframe_scan kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if wide:
+        wide_launches += 1
+    else:
+        launches += 1
     return sub, res, pos_out, ovf

@@ -23,16 +23,16 @@ def _lib() -> ctypes.CDLL:
     fn = lib.flac_restore_scan
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int32] * 3 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int32] * 4 + [ctypes.c_void_p]
     return lib
 
 
 def restore_scan(res, coeffs, order, shift, warm, is_coded, T, maxord):
     """x [B, T] int64 of the restore recurrence; the arguments as
-    frame_decoder.restore_scan takes them (res [B, T] int32; coeffs, warm
-    [B, maxord] int64; order, shift [B] int64; is_coded [B] bool), all on
-    one CUDA device. The rows are independent: the frame decoder stacks
-    every channel's into one launch."""
+    frame_decoder.restore_scan takes them (res [B, T] int32 or int64, the
+    narrow or the wide scan's; coeffs, warm [B, maxord] int64; order, shift
+    [B] int64; is_coded [B] bool), all on one CUDA device. The rows are
+    independent: the frame decoder stacks every channel's into one launch."""
     global launches
     dev = res.device
     if dev.type != "cuda":
@@ -43,8 +43,10 @@ def restore_scan(res, coeffs, order, shift, warm, is_coded, T, maxord):
     if tuple(res.shape) != (B, T) or not 0 < T < 2 ** 31 or maxord < 0:
         raise ValueError(f"restore_scan: bad sizes {tuple(res.shape)} T={T} "
                          f"maxord={maxord}")
+    res64 = res.dtype == torch.int64
     args = []
-    for name, t, dtype, shape in (("res", res, torch.int32, (B, T)),
+    for name, t, dtype, shape in (("res", res, torch.int64 if res64 else torch.int32,
+                                   (B, T)),
                                   ("coeffs", coeffs, torch.int64, (B, maxord)),
                                   ("order", order, torch.int64, (B,)),
                                   ("shift", shift, torch.int64, (B,)),
@@ -59,7 +61,7 @@ def restore_scan(res, coeffs, order, shift, warm, is_coded, T, maxord):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.flac_restore_scan(*[a.data_ptr() for a in args], x.data_ptr(),
-                                   B, T, maxord, stream)
+                                   B, T, maxord, int(res64), stream)
     if rc != 0:
         raise RuntimeError(f"restore_scan kernel launch failed: CUDA error {rc}")
     launches += 1

@@ -3,7 +3,9 @@
 the reference's bit estimator, the descending partition-order sweep, and the
 exact bit count of the chosen parameters.
 
-Escape coding (do_escape) is off in every preset and not ported yet.
+Escape coding (do_escape, off in every preset) searches escaped (raw-bits)
+partitions too (precompute_partition_info_escapes_, stream_encoder.c:3844;
+set_partitioned_rice_, :4012-4021).
 """
 
 from __future__ import annotations
@@ -42,11 +44,6 @@ def fold_residual(res: torch.Tensor, narrow: bool = False) -> torch.Tensor:
     return torch.where(r >= 0, r << 1, (-r << 1) - 1)
 
 
-def _not_ported_escape():
-    raise NotImplementedError(
-        "escape coding is not ported yet (ROADMAP queue 1 item 4)")
-
-
 def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
                 suggested: torch.Tensor, blocksize: int, min_po: int,
                 max_po: int, rice_limit: int, do_escape: bool = False,
@@ -57,10 +54,9 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
     folded: [..., T] sign-folded residuals (zeros at t < order); order and
     suggested (the estimator's parameter for partition order 0): [...].
     Descending order sweep with strict <, so ties keep the higher order
-    (stream_encoder.c:3726).
+    (stream_encoder.c:3726). do_escape also weighs an escaped partition of
+    raw residuals against each Rice partition; escape wins ties.
     """
-    if do_escape:
-        _not_ported_escape()
     T = blocksize
     batch = folded.shape[:-1]
     nleaf = 1 << max_po
@@ -72,6 +68,16 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
         prev = sums_by_po[po + 1]
         sums_by_po[po] = prev[..., 0::2] + prev[..., 1::2]
 
+    if do_escape:
+        # a partition's raw width comes from rmax = OR(r >= 0 ? r : ~r) ==
+        # OR(folded >> 1) (stream_encoder.c:3867-3880); the max has the same
+        # bit length as the OR, and only the bit length is used
+        fu = _uint32_bits(folded) if folded.dtype == torch.int32 else folded
+        rmax_by_po = {max_po: (fu >> 1).reshape(batch + (nleaf, ps_leaf)).amax(dim=-1)}
+        for po in range(max_po - 1, -1, -1):
+            prev = rmax_by_po[po + 1]
+            rmax_by_po[po] = torch.maximum(prev[..., 0::2], prev[..., 1::2])
+
     N = 1
     for d in batch:
         N *= d
@@ -81,7 +87,7 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
     def pm(a):  # [..., nparts] -> [nparts, N] (partition-major)
         return a.reshape((N,) + a.shape[len(batch):]).movedim(0, -1)
 
-    best_total = best_po = params_leaf = None
+    best_total = best_po = params_leaf = raw_leaf = None
     for po in range(max_po, min_po - 1, -1):
         nparts = 1 << po
         ps = T >> po
@@ -102,6 +108,20 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
                      + torch.where(k64 > 0, sums >> torch.clamp(k64 - 1, min=0),
                                    sums << 1)
                      - (n_p >> 1))
+        if do_escape:
+            # escape: a 5-bit RICE2 parameter, a 5-bit raw length and the
+            # raw payload (stream_encoder.c:4012-4021); escape wins ties,
+            # and the raw length must fit its 5 bits
+            rmax = pm(rmax_by_po[po])
+            rawb = torch.where(rmax > 0, _bitlen(rmax) + 1, 1).to(torch.int64)
+            esc_bits = (C.ENTROPY_CODING_METHOD_PARTITIONED_RICE2_PARAMETER_LEN
+                        + C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_RAW_LEN
+                        + rawb * n_p)
+            use_esc = (esc_bits <= part_bits) & (rawb <= 31)
+            part_bits = torch.where(use_esc, esc_bits, part_bits)
+            k = torch.where(use_esc, 0, k)  # an escaped partition stores 0
+            raw_po = torch.where(use_esc, rawb, 0).to(torch.int32).repeat_interleave(
+                nleaf // nparts, dim=0)
         total = (C.ENTROPY_CODING_METHOD_TYPE_LEN
                  + C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ORDER_LEN
                  + part_bits.sum(dim=0))                  # [N]
@@ -114,22 +134,28 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
             best_total, params_leaf = total, k_po
             best_po = torch.full(total.shape, po, dtype=torch.int32,
                                  device=total.device)
+            if do_escape:
+                raw_leaf = raw_po
         else:
             better = total < best_total
             best_total = torch.where(better, total, best_total)
             best_po = torch.where(better, po, best_po)
             params_leaf = torch.where(better[None, :], k_po, params_leaf)
+            if do_escape:
+                raw_leaf = torch.where(better[None, :], raw_po, raw_leaf)
 
     best_total = best_total.reshape(batch)
     best_po = best_po.reshape(batch)
     params_leaf = params_leaf.movedim(0, -1).reshape(batch + (nleaf,))
-    raw_leaf = torch.zeros_like(params_leaf)
+    raw_leaf = (raw_leaf.movedim(0, -1).reshape(batch + (nleaf,)) if do_escape
+                else torch.zeros_like(params_leaf))
     is_rice2 = (params_leaf
                 >= C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ESCAPE_PARAMETER
                 ).any(dim=-1)
     if compute_exact:
-        exact = rice_exact_bits(folded, params_leaf, None, order, best_po,
-                                blocksize, max_po)
+        exact = rice_exact_bits(folded, params_leaf,
+                                raw_leaf if do_escape else None, order,
+                                best_po, blocksize, max_po)
     else:
         # the frame encoder computes exact bits after selection
         exact = torch.zeros_like(best_total)
@@ -143,11 +169,11 @@ def rice_exact_bits(folded: torch.Tensor, params_leaf: torch.Tensor,
                     partition_order: torch.Tensor, blocksize: int,
                     max_po: int) -> torch.Tensor:
     """Exact emitted residual-coding bits for the given parameters: the sum
-    over valid samples of (u >> k) + 1 + k plus the partition parameter
-    fields. folded: [..., T] (int32 bit patterns, read as uint32 with
-    uint32 wraparound, or int64). Returns [...] int64."""
-    if raw_leaf is not None:
-        _not_ported_escape()
+    over valid samples of (u >> k) + 1 + k (the raw width in an escaped
+    partition, where raw_leaf > 0) plus the partition parameter fields and
+    a 5-bit raw length per escaped partition. folded: [..., T] (int32 bit
+    patterns, read as uint32 with uint32 wraparound, or int64). Returns
+    [...] int64."""
     T = blocksize
     ps_leaf = T >> max_po
     narrow = folded.dtype == torch.int32
@@ -158,6 +184,9 @@ def rice_exact_bits(folded: torch.Tensor, params_leaf: torch.Tensor,
     cw = (fu >> k_samp) + 1 + k_samp
     if narrow:
         cw = cw & 0xFFFFFFFF
+    if raw_leaf is not None:
+        raw_samp = raw_leaf.repeat_interleave(ps_leaf, dim=-1).to(torch.int64)
+        cw = torch.where(raw_samp > 0, raw_samp, cw)
     cw_bits = torch.where(valid, cw, 0)
     is_rice2 = (params_leaf
                 >= C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ESCAPE_PARAMETER
@@ -168,6 +197,13 @@ def rice_exact_bits(folded: torch.Tensor, params_leaf: torch.Tensor,
                        ).to(torch.int64)
     one = torch.ones((), dtype=torch.int64, device=folded.device)
     nparts_chosen = one << partition_order.to(torch.int64)
-    return (C.ENTROPY_CODING_METHOD_TYPE_LEN
-            + C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ORDER_LEN
-            + plen * nparts_chosen + cw_bits.sum(dim=-1, dtype=torch.int64))
+    exact = (C.ENTROPY_CODING_METHOD_TYPE_LEN
+             + C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_ORDER_LEN
+             + plen * nparts_chosen + cw_bits.sum(dim=-1, dtype=torch.int64))
+    if raw_leaf is not None:
+        # a 5-bit raw length per escaped partition; an escaped partition's
+        # leaves all carry its raw width, so partitions = leaves >> (max_po - po)
+        n_esc_leaves = (raw_leaf > 0).to(torch.int64).sum(dim=-1)
+        n_esc = n_esc_leaves >> (max_po - partition_order).to(torch.int64)
+        exact = exact + C.ENTROPY_CODING_METHOD_PARTITIONED_RICE_RAW_LEN * n_esc
+    return exact

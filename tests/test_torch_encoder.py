@@ -150,7 +150,15 @@ def test_verify_raises_on_a_mismatch(tmp_path, monkeypatch):
     ("wide", dict(level=5, bits_per_sample=24)),
 ])
 def test_unported_paths_raise(tmp_path, what, kw):
+    """The four paths that raised NotImplementedError before they were
+    ported (the exhaustive search, -p, escape coding, the wide datapath)
+    now encode, verify and decode losslessly through the port alone; their
+    streams are held against flac_tpu's in test_torch_hires.py,
+    test_torch_escape.py and test_torch_wide*.py."""
     bps = kw.pop("bits_per_sample", 16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_enc.encode_file(np.zeros((5000, 2), np.int32), 44100, bps,
-                          str(tmp_path / "x.flac"), device="cpu", **kw)
+    sig = make_signal(5000, 2, bps, kind="quiet", seed=len(what))
+    t_enc.encode_file(sig, 44100, bps, str(tmp_path / "x.flac"), blocksize=1024,
+                      batch_frames=4, verify=True, device="cpu", **kw)
+    pcm, si, _ = t_hd.decode_bytes((tmp_path / "x.flac").read_bytes())
+    assert si.md5sum != b"\x00" * 16
+    np.testing.assert_array_equal(pcm, sig)
