@@ -33,15 +33,23 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     pack_fields_merged and its composition; the all-spill
                     case is among the packer cases.
 4. encode         — the main path: encode_file(level=5) of 60 s of 44.1 kHz
-                    stereo 16-bit PCM made from a seed, on the card; the
-                    kernel's launch count must equal the number of frame
-                    batches (the final partial block included). The file is
+                    stereo 16-bit PCM made from a seed, on the card, through
+                    the dense route (each batch of full frames compacted on
+                    the card, its valid words copied back and written in one
+                    piece); the pack kernel's launch count must equal the
+                    number of frame batches (the final partial block
+                    included), the compaction kernel's the number of
+                    batches of full frames (the partial frame takes the
+                    padded route), and the stream's SHA-256 the padded route's. The
+                    file is
                     decoded by the port's host decoder (CRC-8, CRC-16 and MD5
                     checked) and must give the PCM back. The first batch is
                     also encoded on the CPU, and must give the same bytes
                     frame for frame. One 64-frame batch
                     is timed by stage on the host clock (the two device
-                    stages; the host's MD5, copy back and emit) and once under
+                    stages; the host's MD5, and the copy back and emit of
+                    the dense route and of the padded one, the CPU's, at the
+                    same point) and once under
                     torch.profiler (device busy time, device events); the idle
                     share divides the busy time by the unprofiled wall; 3
                     pack() calls under the profiler (after a warm-up step)
@@ -51,10 +59,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     is printed, to compare streams across versions.
 5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s under
                     FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
-                    pack_words_multi must launch once a batch, and the
+                    pack_words_multi must launch once a batch, the
+                    compaction once a batch of full frames, and the
                     verifier must decode every batch of full frames through
                     the decode kernels (the subframe scan once a channel, the
-                    restore once) without a VerifyError. The merged encode
+                    restore once) without a VerifyError; the dense verify
+                    decodes flac_tpu's byte rows (each frame in a row of the
+                    batch's largest frame length). The merged encode
                     runs once more without verify, for the fill's own cost,
                     then the banded encode once more, and one 64-frame batch
                     is timed by stage as in phase 4 with each fill, so that
@@ -86,14 +97,15 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 8. encode_hires    — the slice's main path: encode_file(level=8, verify=True)
                     of 30 s of 96 kHz stereo 24-bit PCM made from a seed
                     (a sine mix plus noise at 24-bit scale), blocksize 4096,
-                    batches of 64: one pack launch a batch, the verifier's
+                    batches of 64: one pack launch a batch, one compaction
+                    a batch of full frames, the verifier's
                     narrow scan once a channel and the restore once a batch
                     of full frames, no VerifyError; the same bytes again
                     without verify; a lossless decode by the port's host
                     decoder; the first 16 frames encoded on the CPU give the
                     same bytes. One 64-frame batch is timed by stage and its
-                    device idle share taken as in phase 4; the SHA-256 is
-                    printed. Then 10 s of the same format with -p and escape
+                    device idle share taken as in phase 4; the SHA-256 must
+                    be the padded route's. Then 10 s of the same format with -p and escape
                     coding on tests/test_escape.py's burst signal: escaped
                     partitions, lossless, the first 8 frames CPU-identical.
 9. decode_hires    — decode_bytes_device of the 24-bit stream: the exact input,
@@ -107,7 +119,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 10. wide           — encode_file(level=5, verify=True) of 5 s of 44.1 kHz
                     stereo at 28 bits (mid-side on: a 29-bit side channel,
                     the int64 LPC path) and at 32 bits (mid-side off): the
-                    verifier through the wide scan kernel; lossless on the
+                    verifier through the wide scan kernel, the compaction
+                    once a batch of full frames; lossless on the
                     host decoder; then decode_bytes_device of each gives the
                     exact input through the wide scan kernel, launches
                     counted.
@@ -122,7 +135,34 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     restore's int64-res instantiation on the same rows. Times
                     the kernel and the plain version at B=512, T=4096, with
                     the bound.
-12. the `kernels` line, one entry per ported kernel, with its launches on its
+12. kernels_compact — holds the compaction kernel against compact_stream_words,
+                    bit for bit on every word and the total, on the four
+                    cases of tests/test_dense_path.py::TestCompaction
+                    (regenerated from seed 123) and the packed words of a
+                    level-5 B=64 batch, a 24-bit -8 B=64 batch and a level-5
+                    B=512 batch; times the kernel (CUDA-graph replay), the
+                    plain version and one torch.masked_select of the byte
+                    rows (the library yardstick, which the port never calls;
+                    CUDA events, since it synchronises) on the three real
+                    batches, with the bytes bound.
+13. decode_variable — a variable-blocksize stream made from the 60 s PCM
+                    (segments encoded at 4096, 2304 and 1152 by encode_file,
+                    plus three frames of 1000, each frame re-headered as
+                    blocking strategy 1): decode_bytes_device gives the
+                    exact input on path "device-variable", MD5 checked, the
+                    scan launched channels x group batches and the restore
+                    once a group batch, the 1000-sample frames on the host;
+                    iter_blocks gives the same PCM; the wall, then the
+                    median of 5 more.
+14. seek_stream    — SeekableDecoder.decode_range on phase 4's stream at 4
+                    positions (from 0, from mid-frame, across a 64-frame
+                    batch of the device read, the final partial frame), each
+                    equal to the input slice, decode launches counted;
+                    ChunkedStreamDecoder over an io.BytesIO in 1 MiB windows
+                    gives the input back (MD5 checked); lpc_restore on the
+                    card (one restore launch) against its plain version on
+                    the LPC subframes of the stream's first 512 frames.
+15. the `kernels` line, one entry per ported kernel, with its launches on its
    path, error against the plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
@@ -159,6 +199,10 @@ HIRES_RATE = 96000          # the hi-res archival format: 24-bit/96 kHz stereo a
 HIRES_SECONDS = 30
 PE_SECONDS = 10             # the -p and escape-coding encode of that format
 WIDE_SECONDS = 5            # the 28- and 32-bit streams (44.1 kHz stereo, -5)
+# the SHA-256 of the streams of phases 4 and 8 as the padded route writes
+# them: the dense route must give the same bytes
+SHA256_60S_16BIT_L5 = "42e870d8dfd0eacf428343ecfac8905ae86f67c8a6dd5b6d83470af0fee9847d"
+SHA256_30S_24BIT_L8 = "9b9dcefa258eb4f3ea934f8b4a9fdc564db3424c761417c592b662193cad3626"
 
 
 def emit(obj: dict) -> None:
@@ -373,6 +417,83 @@ def random_subframes(n: int = 512, nwords: int = 1 << 14, seed: int = 3):
     return words, starts.astype(np.int64), rng.integers(16, 18, n).astype(np.int64)
 
 
+def compaction_cases():
+    """tests/test_dense_path.py::TestCompaction's four cases, regenerated
+    from seed 123: (name, words [B, W] int32, total_bits [B] int32) of 37
+    frames of 11 to 96 random bytes (every byte phase), many of 11 bytes,
+    all of 96."""
+    rng = np.random.default_rng(123)
+    B, W = 37, 24
+    cases = []
+    for trial in range(4):
+        nbytes = rng.integers(11, 4 * W + 1, B)
+        if trial == 2:
+            nbytes[::5] = 11
+        if trial == 3:
+            nbytes[:] = 4 * W
+        words = np.zeros((B, W), np.uint32)
+        for i, nb in enumerate(nbytes):
+            padded = np.zeros(4 * W, np.uint8)
+            padded[:nb] = rng.integers(0, 256, nb, dtype=np.uint8)
+            words[i] = padded.view(">u4").astype(np.uint32)
+        cases.append((f"test_dense_path_{trial}", words.view(np.int32),
+                      (nbytes * 8).astype(np.int32)))
+    return cases
+
+
+def utf8_number(n: int) -> bytes:
+    """FLAC's UTF-8 coding of a frame or sample number (up to 36 bits)."""
+    if n < 0x80:
+        return bytes([n])
+    for nb in range(2, 8):
+        if n < 1 << (5 * nb + 1):
+            tail = [0x80 | ((n >> (6 * i)) & 0x3F) for i in range(nb - 2, -1, -1)]
+            return bytes([((0xFF00 >> nb) & 0xFF) | (n >> (6 * (nb - 1)))] + tail)
+    raise ValueError(f"{n} does not fit FLAC's UTF-8 coding")
+
+
+def variable_blocksize_stream(pcm, segments, sample_rate, bps, encode):
+    """A variable-blocksize FLAC stream of pcm[:sum(bs * n)]: each segment
+    (blocksize, nframes) is encoded by `encode(pcm_segment, blocksize)` as a
+    fixed-blocksize stream, and each of its frames re-headered as blocking
+    strategy 1, with its first sample's number in UTF-8 and the CRC-8 and
+    CRC-16 recomputed; the subframe bytes are unchanged. One STREAMINFO with
+    the min/max blocksize and the input's MD5 goes in front. (A copy lives
+    in tests/test_torch_variable.py.)"""
+    from flac_tpu_torch import crc
+    from flac_tpu_torch.decode.host_decoder import HostDecoder
+    from flac_tpu_torch.md5 import MD5Context
+    from flac_tpu_torch.metadata import StreamInfo, serialize_block
+
+    frames, sizes, sample = [], [], 0
+    for bs, nframes in segments:
+        data = encode(pcm[sample:sample + bs * nframes], bs)
+        _pcm, infos = HostDecoder(data).decode_all()
+        assert len(infos) == nframes and all(fi.blocksize == bs for fi in infos)
+        for fi in infos:
+            raw = data[fi.offset:fi.offset + fi.size]
+            lead = raw[4]
+            ulen = 1 + sum(lead >= b for b in (0xC0, 0xE0, 0xF0, 0xF8, 0xFC, 0xFE))
+            bs_code, sr_code = raw[2] >> 4, raw[2] & 15
+            ext = ({6: 1, 7: 2}.get(bs_code, 0)
+                   + {12: 1, 13: 2, 14: 2}.get(sr_code, 0))
+            hdr = bytes([raw[0], raw[1] | 1, raw[2], raw[3]]) + utf8_number(sample) \
+                + raw[4 + ulen:4 + ulen + ext]
+            frame = hdr + bytes([crc.crc8(hdr)]) + raw[4 + ulen + ext + 1:-2]
+            frame += crc.crc16(frame).to_bytes(2, "big")
+            frames.append(frame)
+            sizes.append(len(frame))
+            sample += bs
+    md5 = MD5Context()
+    md5.accumulate(pcm[:sample], bps)
+    si = StreamInfo(min_blocksize=min(bs for bs, _ in segments),
+                    max_blocksize=max(bs for bs, _ in segments),
+                    min_framesize=min(sizes), max_framesize=max(sizes),
+                    sample_rate=sample_rate, channels=pcm.shape[1],
+                    bits_per_sample=bps, total_samples=sample, md5sum=md5.digest())
+    return b"fLaC" + serialize_block(si, is_last=True) + b"".join(frames)
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean CUDA-event time of one call, after warm-up."""
     for _ in range(warmup):
@@ -429,14 +550,18 @@ def main() -> None:
         raise SystemExit("chip_smoke: CUDA is not available")
     from flac_tpu_torch import _native
     from flac_tpu_torch.decode import frame_decoder as fd
+    from flac_tpu_torch.decode import seek as sk
     from flac_tpu_torch.decode import stream as st
+    from flac_tpu_torch.decode import streaming as sm
+    from flac_tpu_torch.dsp import lpc
     from flac_tpu_torch.decode.host_decoder import HostDecoder, decode_bytes
     from flac_tpu_torch.encode import packer
     from flac_tpu_torch.encode.encoder import StreamEncoder, encode_file
     from flac_tpu_torch.encode.frame_encoder import (
-        EncoderConfig, build_frame_encoder, build_frame_encoder_parts,
-        max_frame_bytes)
+        EncoderConfig, build_frame_encoder, build_frame_encoder_dense,
+        build_frame_encoder_parts, max_frame_bytes)
     from flac_tpu_torch.kernels import _build
+    from flac_tpu_torch.kernels import compact_stream as cst
     from flac_tpu_torch.kernels import pack_words as pw
     from flac_tpu_torch.kernels import residual_scan as rs
     from flac_tpu_torch.kernels import restore_scan as rr
@@ -584,20 +709,29 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "smoke.flac")
         torch.cuda.synchronize()
-        pw.launches = 0
+        pw.launches = cst.launches = 0
         t0 = time.perf_counter()
         stats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = pw.launches
+        compact_launches = cst.launches
         with open(path, "rb") as f:
             data = f.read()
     n_full = n // BLOCKSIZE
+    full_batches = -(-n_full // 64)  # encode_file's batch_frames
     if launches == 0 or launches != stats.batches:
         raise AssertionError(f"pack kernel launched {launches} times for "
                              f"{stats.batches} frame batches")
+    # the dense route compacts each batch of full frames; the final partial
+    # frame takes the padded route
+    if compact_launches != full_batches:
+        raise AssertionError(f"compaction kernel launched {compact_launches} times for "
+                             f"{full_batches} batches of full frames")
     if stats.frames != n_full + 1 or stats.samples != n:
         raise AssertionError(f"encoded {stats.frames} frames / {stats.samples} samples")
+    if hashlib.sha256(data).hexdigest() != SHA256_60S_16BIT_L5:
+        raise AssertionError("the 60 s -5 stream differs from the padded route's")
     t1 = time.perf_counter()
     out, si, dframes = decode_bytes(data)  # checks CRC-8, CRC-16 and MD5
     decode_s = time.perf_counter() - t1
@@ -616,12 +750,15 @@ def main() -> None:
     def stage_batch(impl: str, trace_pack: bool = True, cfg=cfg, frames=frames) -> dict:
         """Where one 64-frame batch of `frames` (encoded with `cfg`) spends
         its time with the word fill `impl`: the two device stages and the
-        host's MD5, copy back and emit on the host clock, the device's busy
-        time and event count under the profiler, and (trace_pack) pack()
-        alone under the profiler, where it must be one kernel and no other
-        device event."""
+        host's MD5, copy back and emit on the host clock, for the dense
+        route (the compacted words, _emit_dense) and for the padded one
+        (the word matrix, _emit, the CPU's route) at the same point; the
+        device's busy time and event count under the profiler, and
+        (trace_pack) pack() alone under the profiler, where it must be one
+        kernel and no other device event."""
         fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev, packer_impl=impl)
         enc = build_frame_encoder(cfg, device=dev, packer_impl=impl)
+        enc_dense = build_frame_encoder_dense(cfg, device=dev, packer_impl=impl)
         emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
         chunk = frames[:64].reshape(-1, cfg.channels)
 
@@ -636,6 +773,9 @@ def main() -> None:
             return (t_b - t_a) * 1e3, (time.perf_counter() - t_b) * 1e3
 
         def host_stages():
+            # a fresh sink for each emit: writing into one that has grown
+            # over the runs adds its reallocations to whichever emit hits them
+            padded_sink, dense_sink = io.BytesIO(), io.BytesIO()
             t_a = time.perf_counter()
             MD5Context().accumulate(chunk, cfg.bits_per_sample)
             t_b = time.perf_counter()
@@ -643,18 +783,31 @@ def main() -> None:
             torch.cuda.synchronize()
             t_c = time.perf_counter()
             wh, th = w.cpu().numpy(), tb.cpu().numpy()
+            emitter.out = padded_sink
             t_d = time.perf_counter()
             emitter._emit(wh, th, 64)
             t_e = time.perf_counter()
+            stream, total, tb, _ = enc_dense(frames[:64], fnos_64)
+            torch.cuda.synchronize()
+            t_f = time.perf_counter()
+            th = tb.cpu().numpy()
+            total = int(total)
+            sh = stream[: (total + 3) // 4].cpu().numpy()
+            emitter.out = dense_sink
+            t_g = time.perf_counter()
+            emitter._emit_dense(sh, total, th, 64)
+            t_h = time.perf_counter()
             return tuple((y - x) * 1e3 for x, y in
-                         ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e)))
+                         ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e),
+                          (t_e, t_f), (t_f, t_g), (t_g, t_h))) + (len(sh),)
 
         staged()
         host_stages()
         runs = [(staged(), host_stages()) for _ in range(7)]  # interleaved
         fields_ms, pack_ms = (float(np.median(s)) for s in zip(*[a for a, _ in runs]))
-        md5_ms, batch_ms, copy_ms, emit_ms = (
-            float(np.median(s)) for s in zip(*[b for _, b in runs]))
+        (md5_ms, batch_ms, copy_ms, emit_ms, dense_batch_ms, dense_copy_ms,
+         dense_emit_ms, dense_words) = (float(np.median(s))
+                                        for s in zip(*[b for _, b in runs]))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_a = time.perf_counter()
             enc(frames[:64], fnos_64)
@@ -668,7 +821,11 @@ def main() -> None:
         device_ms = busy_ms(spans) if spans else None  # None: the trace saw no device
         stages = {"fields_ms": fields_ms, "pack_ms": pack_ms, "encode_wall_ms": batch_ms,
                   "host_md5_ms": md5_ms, "host_copy_back_ms": copy_ms,
-                  "host_emit_ms": emit_ms, "profiled_wall_ms": profiled_ms,
+                  "host_emit_ms": emit_ms, "dense_encode_wall_ms": dense_batch_ms,
+                  "dense_copy_back_ms": dense_copy_ms, "dense_emit_ms": dense_emit_ms,
+                  "dense_copy_back_words": int(dense_words),
+                  "padded_copy_back_words": 64 * max_frame_bytes(cfg, BLOCKSIZE) // 4,
+                  "profiled_wall_ms": profiled_ms,
                   "device_busy_ms": device_ms, "device_events": len(spans),
                   # busy time over the unprofiled wall; the profiled wall
                   # gives an upper reading
@@ -725,6 +882,7 @@ def main() -> None:
     emit({"phase": "encode", "card": card, "seconds_of_audio": SECONDS,
           "samples_per_channel": n, "frames": stats.frames,
           "batches": stats.batches, "pack_kernel_launches": launches,
+          "compact_stream_launches": compact_launches, "route": "dense",
           "wall_s": wall, "msamples_per_s_per_channel": n / wall / 1e6,
           "compression_ratio": len(data) / (n * 2 * 2), "bytes": len(data),
           "decode_s": decode_s, "lossless": True,
@@ -742,12 +900,13 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             path = os.path.join(tmp, "merged.flac")
             torch.cuda.synchronize()
-            pw.pack_words_multi.launches = rs.launches = rr.launches = 0
+            pw.pack_words_multi.launches = rs.launches = rr.launches = cst.launches = 0
             t0 = time.perf_counter()
             mstats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5, verify=True)
             torch.cuda.synchronize()
             merged_wall = time.perf_counter() - t0
             merged_launches = pw.pack_words_multi.launches
+            merged_compact_launches = cst.launches
             verify_launches = (rs.launches, rr.launches)
             with open(path, "rb") as f:
                 merged_data = f.read()
@@ -772,12 +931,15 @@ def main() -> None:
     if merged_launches != mstats.batches:
         raise AssertionError(f"pack_words_multi launched {merged_launches} times for "
                              f"{mstats.batches} batches")
-    full_batches = -(-n_full // 64)  # encode_file's batch_frames; verified
+    if merged_compact_launches != full_batches:
+        raise AssertionError(f"the merged encode compacted {merged_compact_launches} "
+                             f"batches of {full_batches}")
     if verify_launches != (2 * full_batches, full_batches):
         raise AssertionError(f"verify launched the decode kernels {verify_launches} "
                              f"times for {full_batches} batches of 2 channels")
     emit({"phase": "encode_merged", "card": card, "batches": mstats.batches,
           "pack_words_multi_launches": merged_launches,
+          "compact_stream_launches": merged_compact_launches,
           "verify_subframe_scan_launches": verify_launches[0],
           "verify_restore_scan_launches": verify_launches[1],
           "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
@@ -1030,13 +1192,14 @@ def main() -> None:
     full_batches24 = -(-n_full24 // 64)
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
-        pw.launches = rs.launches = rs.wide_launches = rr.launches = 0
+        pw.launches = rs.launches = rs.wide_launches = rr.launches = cst.launches = 0
         t0 = time.perf_counter()
         hstats = encode_file(pcm24, HIRES_RATE, 24, os.path.join(tmp, "h.flac"), level=8,
                              verify=True)
         torch.cuda.synchronize()
         hires_wall = time.perf_counter() - t0
         hires_launches = (pw.launches, rs.launches, rs.wide_launches, rr.launches)
+        hires_compact_launches = cst.launches
         with open(os.path.join(tmp, "h.flac"), "rb") as f:
             data24 = f.read()
         torch.cuda.synchronize()
@@ -1051,9 +1214,14 @@ def main() -> None:
         raise AssertionError(f"hi-res encode: {hstats.frames} frames / {hstats.samples} samples")
     # one pack launch a batch; the verifier's narrow scan once a channel and
     # the restore once a batch of full frames
-    if hires_launches != (hstats.batches, 2 * full_batches24, 0, full_batches24):
+    if hires_launches != (hstats.batches, 2 * full_batches24, 0, full_batches24) \
+            or hires_compact_launches != full_batches24:
         raise AssertionError(f"hi-res encode launched (pack, scan, wide scan, restore) "
-                             f"{hires_launches} for {hstats.batches} batches")
+                             f"{hires_launches} and {hires_compact_launches} compactions "
+                             f"for {hstats.batches} batches")
+    if hashlib.sha256(data24).hexdigest() != SHA256_30S_24BIT_L8:
+        raise AssertionError("the 30 s 24-bit -8 stream differs from the padded "
+                             "route's")
     out24, si24, _ = decode_bytes(data24)  # CRC-8, CRC-16 and MD5 checked
     if si24.md5sum == b"\x00" * 16 or not np.array_equal(out24, pcm24):
         raise AssertionError("the 24-bit -8 stream does not decode to its input")
@@ -1095,6 +1263,7 @@ def main() -> None:
           "sample_rate": HIRES_RATE, "bits_per_sample": 24, "level": 8,
           "samples_per_channel": n24, "frames": hstats.frames, "batches": hstats.batches,
           "pack_kernel_launches": hires_launches[0],
+          "compact_stream_launches": hires_compact_launches,
           "verify_subframe_scan_launches": hires_launches[1],
           "verify_restore_scan_launches": hires_launches[3], "verify": "passed",
           "wall_s": hires_wall, "wall_s_without_verify": hires_noverify_wall,
@@ -1210,18 +1379,21 @@ def main() -> None:
         full_batches_w = -(-n_full_w // 64)
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
-            pw.launches = rs.launches = rs.wide_launches = rr.launches = 0
+            pw.launches = rs.launches = rs.wide_launches = rr.launches = cst.launches = 0
             t0 = time.perf_counter()
             wstats = encode_file(pcm_w, SAMPLE_RATE, bps, os.path.join(tmp, "w.flac"),
                                  level=5, verify=True)
             torch.cuda.synchronize()
             wwall = time.perf_counter() - t0
-            wlaunch = (pw.launches, rs.launches, rs.wide_launches, rr.launches)
+            wlaunch = (pw.launches, rs.launches, rs.wide_launches, rr.launches,
+                       cst.launches)
             with open(os.path.join(tmp, "w.flac"), "rb") as f:
                 data_w = f.read()
-        if wlaunch != (wstats.batches, 0, 2 * full_batches_w, full_batches_w):
+        if wlaunch != (wstats.batches, 0, 2 * full_batches_w, full_batches_w,
+                       full_batches_w):
             raise AssertionError(f"{bps}-bit encode launched (pack, scan, wide scan, "
-                                 f"restore) {wlaunch} for {wstats.batches} batches")
+                                 f"restore, compaction) {wlaunch} for {wstats.batches} "
+                                 "batches")
         if not np.array_equal(decode_bytes(data_w)[0], pcm_w):
             raise AssertionError(f"the {bps}-bit stream does not decode to its input")
         n_batches_w = -(-n_full_w // DECODE_B)
@@ -1243,7 +1415,8 @@ def main() -> None:
         wide_rows[bps] = {"seconds_of_audio": WIDE_SECONDS, "frames": wstats.frames,
                           "batches": wstats.batches, "pack_kernel_launches": wlaunch[0],
                           "verify_wide_scan_launches": wlaunch[2],
-                          "verify_restore_scan_launches": wlaunch[3], "verify": "passed",
+                          "verify_restore_scan_launches": wlaunch[3],
+                          "compact_stream_launches": wlaunch[4], "verify": "passed",
                           "encode_wall_s": wwall, "bytes": len(data_w),
                           "compression_ratio": len(data_w) / (nw_ * 2 * bps / 8),
                           "decode_wall_s": dwall_w, "decode_path": dinfo_w["path"],
@@ -1350,7 +1523,183 @@ def main() -> None:
                         "bound_ms": wide_bound_ms, "bytes": wide_bytes,
                         "subframe_bytes": wsub_bytes}})
 
-    # --- 12. kernels line ---------------------------------------------------
+    # --- 12. kernels_compact: the compaction kernel against its plain version --
+    ccases = []
+    compact_timing = {}
+    enc5 = build_frame_encoder(cfg, device=dev)
+    enc8 = build_frame_encoder(cfg8, device=dev)
+    real_batches = [(f"level5_batch_64x{BLOCKSIZE}", *enc5(frames[:64], np.arange(64))[:2]),
+                    (f"level8_24bit_batch_64x{BLOCKSIZE}",
+                     *enc8(frames24[:64], np.arange(64))[:2]),
+                    (f"level5_batch_{DECODE_B}x{BLOCKSIZE}",
+                     *enc5(frames[:DECODE_B], np.arange(DECODE_B))[:2])]
+    for name, w_c, tb_c in compaction_cases() + real_batches:
+        w_c = torch.as_tensor(w_c, device=dev)
+        tb_c = torch.as_tensor(tb_c, device=dev)
+        got = cst.compact_stream(w_c, tb_c)
+        ref = packer.compact_stream_words(w_c, tb_c)
+        torch.cuda.synchronize()
+        cerr = max(err(got[0], ref[0]), abs(int(got[1]) - int(ref[1])))
+        ccases.append({"case": name, "shape": list(w_c.shape), "bytes": int(ref[1]),
+                       "max_abs_err": cerr})
+        if cerr:
+            raise AssertionError(f"the compaction kernel disagrees on {name}: {cerr}")
+        if name.startswith("level"):
+            nb, wn = w_c.shape
+            nbytes_c = (tb_c.to(torch.int64) + 7) // 8
+            # the library yardstick, which the port never calls: one
+            # masked_select of the frames' byte rows gives the stream's bytes
+            rows = packer.big_endian_bytes(w_c)
+            keep = torch.arange(4 * wn, device=dev)[None, :] < nbytes_c[:, None]
+            lib_bytes = torch.masked_select(rows, keep)
+            stream_bytes = packer.compact_stream_bytes(w_c, tb_c)[0][: int(got[1])]
+            if not torch.equal(lib_bytes, stream_bytes):
+                raise AssertionError(f"masked_select disagrees with the kernel on {name}")
+            # the valid words read once, total_bits read once, the B*W words
+            # and the total written once
+            read_words = int(((nbytes_c + 3) // 4).sum())
+            c_bytes = read_words * 4 + nb * 4 + nb * wn * 4 + 8
+            compact_timing[name] = {
+                "kernel_ms": graph_ms(lambda: cst.compact_stream(w_c, tb_c)),
+                "plain_ms": time_ms(lambda: packer.compact_stream_words(w_c, tb_c),
+                                    iters=3, warmup=1),
+                # masked_select sizes its output from the data, which
+                # synchronises: CUDA events around back-to-back calls
+                "library_ms": time_ms(lambda: torch.masked_select(rows, keep)),
+                "bound_ms": c_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bytes": c_bytes, "stream_bytes": int(got[1]),
+                "padded_bytes": nb * wn * 4}
+            del rows, keep, lib_bytes, stream_bytes
+    del real_batches, enc5, enc8
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels_compact", "card": card, "kernel": "compact_stream_kernel",
+          "cases": ccases, "timing": compact_timing})
+
+    # --- 13. decode_variable: a variable-blocksize stream on the card ----------
+    # segments of the 60 s PCM at three blocksizes, interleaved, plus three
+    # frames of 1000 samples, which go to the host decoder (_VAR_MIN_GROUP)
+    var_segments = [(4096, 100), (2304, 200), (1152, 390), (1000, 1),
+                    (4096, 100), (2304, 200), (1152, 390), (1000, 2)]
+    with tempfile.TemporaryDirectory() as tmp:
+        def encode_segment(seg, bs):
+            path = os.path.join(tmp, "seg.flac")
+            encode_file(seg, SAMPLE_RATE, 16, path, level=5, blocksize=bs)
+            with open(path, "rb") as f:
+                return f.read()
+
+        t0 = time.perf_counter()
+        data_var = variable_blocksize_stream(pcm, var_segments, SAMPLE_RATE, 16,
+                                             encode_segment)
+        var_make_s = time.perf_counter() - t0
+    n_var = sum(bs * k for bs, k in var_segments)
+    groups = {}
+    for bs, k in var_segments:
+        groups[bs] = groups.get(bs, 0) + k
+    var_batches = sum(-(-k // 64) for bs, k in groups.items() if k >= 4)
+    var_host = sum(k for k in groups.values() if k < 4)
+    torch.cuda.synchronize()
+    rs.launches = rs.wide_launches = rr.launches = 0
+    t0 = time.perf_counter()
+    vout, vsi, vinfo = st.decode_bytes_device(data_var)
+    torch.cuda.synchronize()
+    var_wall = time.perf_counter() - t0
+    var_launches = (rs.launches, rs.wide_launches, rr.launches)
+    if vsi.min_blocksize == vsi.max_blocksize or vsi.md5sum == b"\x00" * 16:
+        raise AssertionError("the variable-blocksize stream's STREAMINFO is wrong")
+    if not np.array_equal(vout, pcm[:n_var]):
+        raise AssertionError("the variable-blocksize decode did not return the input")
+    if vinfo["path"] != "device-variable" or vinfo["errors"] \
+            or vinfo["frames"] != sum(groups.values()):
+        raise AssertionError(f"variable-blocksize decode: {vinfo}")
+    if vinfo["host_frames"] != var_host + vinfo["overflow_frames"]:
+        raise AssertionError(f"variable-blocksize frames on the host: {vinfo}")
+    if var_launches != (2 * var_batches, 0, var_batches):
+        raise AssertionError(f"the variable decode launched (scan, wide scan, restore) "
+                             f"{var_launches} for {var_batches} group batches")
+    vblocks = list(st.StreamDecoder(data_var).iter_blocks())
+    if not np.array_equal(np.concatenate(vblocks), vout):
+        raise AssertionError("iter_blocks differs from decode_all on the variable stream")
+    var_walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.decode_bytes_device(data_var)
+        torch.cuda.synchronize()
+        var_walls.append(time.perf_counter() - t0)
+    emit({"phase": "decode_variable", "card": card, "segments": var_segments,
+          "groups": groups, "samples_per_channel": n_var, "bytes": len(data_var),
+          "make_s": var_make_s, "frames": vinfo["frames"], "path": vinfo["path"],
+          "host_frames": vinfo["host_frames"], "overflow_frames": vinfo["overflow_frames"],
+          "group_batches": var_batches, "subframe_scan_launches": var_launches[0],
+          "restore_scan_launches": var_launches[2], "lossless": True, "md5_checked": True,
+          "iter_blocks_equal": True, "wall_s": var_wall, "wall_s_repeats": var_walls,
+          "wall_s_median_of_repeats": float(np.median(var_walls)),
+          "msamples_per_s_per_channel": n_var / float(np.median(var_walls)) / 1e6})
+    del data_var, vout, vblocks
+
+    # --- 14. seek_stream: positioned and bounded-memory decodes on the card ----
+    seek_cases = []
+    sdec = sk.SeekableDecoder(data)
+    # from 0; from mid-frame; across a 64-frame batch of the device read; the
+    # final partial frame
+    for s0, cnt in ((0, 20 * BLOCKSIZE), (5 * BLOCKSIZE + 1234, 9 * BLOCKSIZE),
+                    (100 * BLOCKSIZE + 77, 70 * BLOCKSIZE), (n - 1000, 1000)):
+        torch.cuda.synchronize()
+        rs.launches = rr.launches = 0
+        t0 = time.perf_counter()
+        got = sdec.decode_range(s0, cnt)
+        seek_s = time.perf_counter() - t0
+        if not np.array_equal(got, pcm[s0:s0 + cnt]):
+            raise AssertionError(f"decode_range({s0}, {cnt}) differs from the input")
+        seek_cases.append({"start": s0, "samples": cnt, "seconds": seek_s,
+                           "subframe_scan_launches": rs.launches,
+                           "restore_scan_launches": rr.launches})
+    if sum(c["restore_scan_launches"] for c in seek_cases) == 0:
+        raise AssertionError("no seek read went through the device decoder")
+    torch.cuda.synchronize()
+    rs.launches = rr.launches = 0
+    t0 = time.perf_counter()
+    cdec = sm.ChunkedStreamDecoder(io.BytesIO(data), window_bytes=1 << 20)
+    cblocks = list(cdec.iter_blocks())  # MD5 checked at exhaustion
+    chunked_s = time.perf_counter() - t0
+    if not np.array_equal(np.concatenate(cblocks), pcm):
+        raise AssertionError("ChunkedStreamDecoder did not return the input")
+    chunked = {"window_bytes": cdec.window, "stream_bytes": len(data),
+               "blocks": len(cblocks), "seconds": chunked_s,
+               "subframe_scan_launches": rs.launches, "restore_scan_launches": rr.launches,
+               "info": cdec.decode_info}
+    if len(data) <= cdec.window or rr.launches == 0:
+        raise AssertionError(f"the chunked decode took one window or no device batch: "
+                             f"{chunked}")
+    del cblocks
+    # lpc_restore through the restore kernel, against its plain version, on
+    # the LPC subframes of the 60 s stream's first 512 frames
+    pos, assignment, _ = fd.read_frame_header(words, starts, geom.header_ext_bits, 2)
+    lpc_rows = []
+    for c in range(2):
+        sub, res_c, pos, _ = rs.subframe_scan(
+            words, pos, fd.side_channel_bps(assignment, c, 16, 2), BLOCKSIZE, DECODE_MAXORD)
+        m = sub["is_lpc"]
+        lpc_rows.append((res_c[m], sub["qlp"][m], sub["order"][m],
+                         torch.clamp(sub["shift"][m], min=0), sub["warm"][m]))
+    largs = (*stack_rows(lpc_rows), DECODE_MAXORD)
+    torch.cuda.synchronize()
+    rr.launches = 0
+    xk = lpc.lpc_restore(*largs)
+    lpc_launches = rr.launches
+    xp = lpc.lpc_restore_plain(*largs)
+    torch.cuda.synchronize()
+    lpc_err = err(xk, xp)
+    if lpc_err or lpc_launches != 1:
+        raise AssertionError(f"lpc_restore on the card: error {lpc_err}, "
+                             f"{lpc_launches} restore launches")
+    emit({"phase": "seek_stream", "card": card, "decode_range": seek_cases,
+          "chunked": chunked, "lpc_restore": {"rows": int(largs[0].shape[0]),
+                                              "max_abs_err": lpc_err,
+                                              "restore_scan_launches": lpc_launches}})
+    del lpc_rows, largs, xk, xp
+
+    # --- 15. kernels line ---------------------------------------------------
     def pack_row(name, merged, replaces, main_launches):
         row = pack_rows[merged]
         t512, t64 = row["timing"]["B512"], row["timing"]["B64"]
@@ -1364,6 +1713,7 @@ def main() -> None:
                 "library_ms": t512["library_ms"], "ms_b64": t64["kernel_ms"],
                 "bound_ms_b64": t64["bound_ms"], "fill_only_ms": t512["fill_only_ms"]}
 
+    ct512 = compact_timing[f"level5_batch_{DECODE_B}x{BLOCKSIZE}"]
     emit({"kernels": [
         pack_row("pack_words", False, "flac_tpu/encode/packer.py:443", launches),
         pack_row("pack_words_multi", True, "flac_tpu/encode/packer.py:678",
@@ -1378,8 +1728,11 @@ def main() -> None:
         "name": "restore_scan", "route": "cuda",
         "source": "flac_tpu_torch/csrc/restore_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:628",
-        "launches": decode_launches[1], "bit_exact": True,
-        "max_abs_err": max(c.get("restore_scan_max_abs_err", 0) for c in dcases + wcases),
+        "launches": decode_launches[1] + lpc_launches,
+        "launches_decode": decode_launches[1], "launches_lpc_restore": lpc_launches,
+        "bit_exact": True,
+        "max_abs_err": max([c.get("restore_scan_max_abs_err", 0) for c in dcases + wcases]
+                           + [lpc_err]),
         "ms": restore_ms, "plain_ms": restore_plain_ms, "bound_ms": restore_bound_ms,
         "bound_by": "bytes" if restore_bytes_ms >= restore_ops_ms else "operations",
         "library_ms": None}, {
@@ -1389,7 +1742,16 @@ def main() -> None:
         "launches": wide_decode_launches, "bit_exact": True,
         "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in wcases),
         "ms": wide_ms, "plain_ms": wide_plain_ms, "bound_ms": wide_bound_ms,
-        "bound_by": "bytes", "library_ms": None}]})
+        "bound_by": "bytes", "library_ms": None}, {
+        "name": "compact_stream", "route": "cuda", "kernel": "compact_stream_kernel",
+        "source": "flac_tpu_torch/csrc/compact_stream.cu",
+        "replaces": "flac_tpu/encode/packer.py:181",
+        "launches": compact_launches, "bit_exact": True,
+        "max_abs_err": max(c["max_abs_err"] for c in ccases),
+        "ms": ct512["kernel_ms"], "plain_ms": ct512["plain_ms"],
+        "bound_ms": ct512["bound_ms"], "bound_by": "bytes",
+        "library_ms": ct512["library_ms"],
+        "ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["kernel_ms"]}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -24,10 +24,9 @@ Each has a plain PyTorch version here (`subframe_scan`, the composition of
 `restore_scan`), which CPU tensors take and which the tests hold against
 flac_tpu. Frames the scan flags (`unary_overflow`) and variable-geometry
 frames (the stream's final partial frame) are the host decoder's; the
-stream layer (decode.stream) routes them there.
-
-Not ported yet: per-frame header widths (`dynamic_header_ext`,
-variable-blocksize streams; NotImplementedError names its ROADMAP item).
+stream layer (decode.stream) routes them there. Variable-blocksize streams
+decode in groups of one blocksize, with each frame's header width given
+(`dynamic_header_ext`).
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ import numpy as np
 import torch
 
 from flac_tpu_torch.device import resolve_device
+from flac_tpu_torch.dsp.signal import undo_channel_assignment
 from flac_tpu_torch.encode.frame_encoder import _header_static_codes
 from flac_tpu_torch.kernels import residual_scan as _residual_scan
 from flac_tpu_torch.kernels import restore_scan as _restore_scan
@@ -72,6 +72,9 @@ class DecoderGeometry:
     # obeys FLAC_TPU_SCAN=narrow|wide and defaults to narrow; streams of
     # more than 26 bits always take the wide scan
     scan_impl: str = "auto"
+    # variable-blocksize streams: the decode fn takes a third argument,
+    # hdr_ext_bits [B], each frame's bits between the UTF-8 number and the
+    # CRC-8, in place of the static width (stream_decoder.c:2197-2225)
     dynamic_header_ext: bool = False
 
     @classmethod
@@ -93,11 +96,6 @@ class _HeaderCfg:
 
     sample_rate: int
     bits_per_sample: int
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to flac_tpu_torch yet (ROADMAP queue 1 item 7)")
 
 
 def _use_narrow_scan(geom: DecoderGeometry) -> bool:
@@ -503,8 +501,10 @@ def restore_scan_kernel(res, coeffs, order, shift, warm, is_coded, T, maxord):
 # ---------------------------------------------------------------------------
 
 
-def read_frame_header(words, pos, ext_bits: int, channels: int):
-    """The fixed-blocksize frame header at `pos`: (pos after the CRC-8,
+def read_frame_header(words, pos, ext_bits, channels: int):
+    """The frame header at `pos`, whose blocksize and sample-rate fields
+    take `ext_bits` bits after the UTF-8 number (an int for the whole
+    batch, or a [B] tensor of each frame's): (pos after the CRC-8,
     assignment [B] int32 (0 independent, 1 left/side, 2 right/side, 3
     mid/side), sync_ok [B] bool)."""
     h, pos = _read_bits(words, pos, 32)
@@ -648,15 +648,13 @@ def build_frame_decoder(geom: DecoderGeometry,
                         device: str | torch.device | None = None):
     """The decoder of a batch of frames of one geometry on `device` (None:
     CUDA, which raises without a GPU). Returns fn(words [W] int32, start_bits
-    [B] int64) -> (pcm [B, T, Ch] (int16 for <= 16 bits, else int32),
+    [B] int64[, hdr_ext_bits [B] with geom.dynamic_header_ext]) -> (pcm
+    [B, T, Ch] (int16 for <= 16 bits, else int32),
     end_bits [B] int64, meta dict of sync_ok, assignment, subframe_type,
     order, wasted, unary_overflow); inputs may be numpy arrays or tensors,
     outputs are on the device. The scan choice (FLAC_TPU_SCAN) is read here,
     outside the build cache, so that a change takes effect."""
     device = resolve_device(device)
-    if geom.dynamic_header_ext:
-        _not_ported("per-frame header widths (dynamic_header_ext, "
-                    "variable-blocksize streams)")
     return _build_frame_decoder(geom, device, not _use_narrow_scan(geom))
 
 
@@ -669,10 +667,12 @@ def _build_frame_decoder(geom: DecoderGeometry, device: torch.device, wide: bool
     ext_bits = geom.header_ext_bits
     out_dtype = torch.int16 if bps <= 16 else torch.int32
 
-    def decode(words, start_bits):
+    def decode(words, start_bits, hdr_ext_bits=None):
         words = torch.as_tensor(words, dtype=_I32, device=device)
         pos = torch.as_tensor(start_bits, device=device).to(_I64)
-        pos, assignment, sync_ok = read_frame_header(words, pos, ext_bits, Ch)
+        ext = (torch.as_tensor(hdr_ext_bits, device=device).to(_I64)
+               if geom.dynamic_header_ext else ext_bits)
+        pos, assignment, sync_ok = read_frame_header(words, pos, ext, Ch)
         # a channel's subframe starts where the previous one ends, so the
         # scans run in turn; the restore then runs once on all their rows
         subs, ress = [], []
@@ -691,14 +691,7 @@ def _build_frame_decoder(geom: DecoderGeometry, device: torch.device, wide: bool
         # byte-align, then the frame's CRC-16 (checked by the stream layer)
         pos = ((pos + 7) & ~7) + 16
         if Ch == 2:
-            ch0, ch1 = chans
-            a = assignment[:, None]
-            mid2 = (ch0 << 1) | (ch1 & 1)
-            left = torch.where(a == 1, ch0, torch.where(
-                a == 2, ch0 + ch1, torch.where(a == 3, (mid2 + ch1) >> 1, ch0)))
-            right = torch.where(a == 1, ch0 - ch1, torch.where(
-                a == 2, ch1, torch.where(a == 3, (mid2 - ch1) >> 1, ch1)))
-            pcm = torch.stack([left, right], dim=-1)
+            pcm = torch.stack(undo_channel_assignment(*chans, assignment), dim=-1)
         else:
             pcm = torch.stack(chans, dim=-1)
         meta = dict(sync_ok=sync_ok, assignment=assignment,
@@ -731,25 +724,39 @@ def bytes_to_words(data: bytes | np.ndarray, bucket: bool = False) -> np.ndarray
     return words
 
 
+def byte_rows_to_words(rows: torch.Tensor) -> torch.Tensor:
+    """bytes_to_words on the device: uint8 byte rows [N, R], back to back,
+    as big-endian int32 words, zero-padded to a whole word plus two."""
+    flat = rows.reshape(-1).to(_I64)
+    pad = (-flat.numel()) % 4 + 8
+    flat = torch.cat([flat, torch.zeros(pad, dtype=_I64, device=flat.device)]).view(-1, 4)
+    w = (flat[:, 0] << 24) | (flat[:, 1] << 16) | (flat[:, 2] << 8) | flat[:, 3]
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(_I32)
+
+
 def make_verifier(cfg, device: torch.device):
     """Verify-while-encoding (the reference's decoder-in-the-encoder,
-    stream_encoder.c:977-1006): fn(words [B, maxwords] int32 on `device`,
-    one packed frame per row) -> pcm [B, T, Ch] of the decoded frames, on
-    the device. The rows are decoded where they lie: the flat word array is
-    the rows back to back, plus the two zero words bytes_to_words appends."""
+    stream_encoder.c:977-1006): fn(rows) -> pcm [B, T, Ch] of the decoded
+    frames, on the device, one packed frame a row. `rows` are int32 word
+    rows [B, maxwords] (the padded layout) or uint8 byte rows [B, maxb]
+    (flac_tpu's dense layout), on `device`; the rows are decoded where they
+    lie, back to back, plus the zero words bytes_to_words appends."""
     geom = DecoderGeometry(blocksize=cfg.blocksize, channels=cfg.channels,
                            bits_per_sample=cfg.bits_per_sample,
                            sample_rate=cfg.sample_rate,
                            max_lpc_order=max(cfg.max_lpc_order, 4))
     dec = build_frame_decoder(geom, device)
 
-    def verify(words: torch.Tensor) -> torch.Tensor:
-        B, W = words.shape
-        flat = torch.cat([words.reshape(-1),
-                          torch.zeros(2, dtype=_I32, device=words.device)])
-        starts = torch.arange(B, dtype=_I64, device=words.device) * (W * 32)
+    def verify(rows: torch.Tensor) -> torch.Tensor:
+        B = rows.shape[0]
+        if rows.dtype == torch.uint8:
+            flat, row_bits = byte_rows_to_words(rows), rows.shape[1] * 8
+        else:
+            flat = torch.cat([rows.reshape(-1),
+                              torch.zeros(2, dtype=_I32, device=rows.device)])
+            row_bits = rows.shape[1] * 32
+        starts = torch.arange(B, dtype=_I64, device=rows.device) * row_bits
         pcm, _end, _meta = dec(flat, starts)
         return pcm
 
     return verify
-

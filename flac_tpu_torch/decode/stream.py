@@ -16,8 +16,12 @@ parallel decoder indexes the frames first:
    decoder. Those host frames are flac_tpu's semantics, and are counted in
    `decode_info` (`host_frames`, `overflow_frames`).
 
+Variable-blocksize streams (blocking strategy 1, from foreign encoders) are
+indexed by their sample numbers (`index_frames_variable`) and decode in
+groups of one blocksize, each frame's header width given to the decoder;
+small groups go to the host decoder (path "device-variable").
+
 MD5 of the assembled PCM is the end-to-end verdict (stream_decoder.h:797).
-Variable-blocksize streams are not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -48,12 +52,6 @@ except Exception:  # pragma: no cover
 
 class StreamDecodeError(Exception):
     pass
-
-
-def _variable_not_ported():
-    raise NotImplementedError(
-        "variable-blocksize streams are not ported to flac_tpu_torch yet "
-        "(ROADMAP queue 1 item 7)")
 
 
 def index_frames(data: np.ndarray, audio_offset: int, si: StreamInfo) -> np.ndarray | None:
@@ -130,8 +128,99 @@ def index_frames(data: np.ndarray, audio_offset: int, si: StreamInfo) -> np.ndar
 
 
 def index_frames_variable(data: np.ndarray, audio_offset: int, si: StreamInfo):
-    """The frame index of a variable-blocksize stream: not ported yet."""
-    _variable_not_ported()
+    """Frame index of a variable-blocksize (blocking_strategy=1) stream.
+
+    Each frame carries its own blocksize code and a UTF-8-coded SAMPLE
+    number (stream_decoder.c:2197-2240), so the geometry is parsed per
+    candidate. The chain check: sample numbers start at 0 and each frame's
+    is the previous frame's plus its parsed blocksize.
+
+    Returns (offsets, blocksizes, sample_numbers, hdr_ext_bits) sorted by
+    sample number (hdr_ext_bits: each header's bits between the UTF-8
+    number and the CRC-8, for DecoderGeometry(dynamic_header_ext)), or None
+    when the index is ambiguous or a frame uses a sample-rate code other
+    than the canonical one (the caller decodes on the host instead).
+    """
+    d = data
+    n = len(d)
+    if n < audio_offset + 2:
+        return None
+    (_bs, _bse, _bsv, sr_code, sr_ext_bits, sr_ext_val,
+     bps_code) = _header_static_codes(_HeaderCfg(si.sample_rate, si.bits_per_sample),
+                                      max(si.max_blocksize, 16))
+    cand = np.flatnonzero(
+        (d[audio_offset:n - 5] == 0xFF)
+        & (d[audio_offset + 1:n - 4] == 0xF9)       # sync + variable strategy
+        & ((d[audio_offset + 2:n - 3] & 0x0F) == sr_code)
+        & ((d[audio_offset + 2:n - 3] >> 4) >= 1)   # blocksize code 0 reserved
+    ) + audio_offset
+    if len(cand) == 0:
+        return None
+    b3 = d[cand + 3]
+    ca = b3 >> 4
+    ok = ((b3 & 0x0F) == (bps_code << 1)) \
+        & (ca <= (10 if si.channels == 2 else si.channels - 1))
+    if si.channels == 2:
+        ok &= (ca == 1) | (ca >= 8)
+    else:
+        ok &= ca == si.channels - 1
+    cand = cand[ok]
+    if len(cand) == 0:
+        return None
+    # UTF-8 sample number (up to 36 bits: up to 7 bytes)
+    lead = d[cand + 4].astype(np.int64)
+    ulen = (1 + (lead >= 0xC0) + (lead >= 0xE0) + (lead >= 0xF0)
+            + (lead >= 0xF8) + (lead >= 0xFC) + (lead >= 0xFE)).astype(np.int64)
+    number = np.where(ulen == 1, lead, lead & (0x7F >> np.minimum(ulen, 7)))
+    for j in range(1, int(ulen.max())):
+        cont = d[np.minimum(cand + 4 + j, n - 1)].astype(np.int64)
+        number = np.where(j < ulen, (number << 6) | (cont & 0x3F), number)
+    # each candidate's blocksize from its code (+ 8/16-bit end-of-header value)
+    bs_code = (d[cand + 2] >> 4).astype(np.int64)
+    bs_ext_bits = np.where(bs_code == 6, 8, np.where(bs_code == 7, 16, 0))
+    ext_off = cand + 4 + ulen
+    ext_val = d[np.minimum(ext_off, n - 1)].astype(np.int64)
+    ext_val = np.where(bs_code == 7,
+                       (ext_val << 8) | d[np.minimum(ext_off + 1, n - 1)],
+                       ext_val)
+    blocksize = np.select(
+        [bs_code == 1, (bs_code >= 2) & (bs_code <= 5), (bs_code >= 6) & (bs_code <= 7)],
+        [np.int64(192), np.int64(576) << np.maximum(bs_code - 2, 0), ext_val + 1],
+        default=np.int64(256) << np.maximum(bs_code - 8, 0))
+    # the static sample-rate extension (if the canonical code has one)
+    ok = np.ones(len(cand), bool)
+    sr_off = ext_off + bs_ext_bits // 8
+    if sr_ext_bits:
+        val = np.zeros(len(cand), np.int64)
+        for j in range(sr_ext_bits // 8):
+            val = (val << 8) | d[np.minimum(sr_off + j, n - 1)]
+        ok &= val == sr_ext_val
+    hdr_len = 4 + ulen + bs_ext_bits // 8 + sr_ext_bits // 8
+    cand, number, blocksize, bs_ext_bits, hdr_len = \
+        cand[ok], number[ok], blocksize[ok], bs_ext_bits[ok], hdr_len[ok]
+    if len(cand) == 0:
+        return None
+    maxh = int(hdr_len.max())
+    rows = np.zeros((len(cand), maxh), np.uint8)
+    for j in range(maxh):
+        rows[:, j] = d[np.minimum(cand + j, n - 1)]
+    good = crc_mod.crc8_batch(rows, hdr_len) == d[np.minimum(cand + hdr_len, n - 1)]
+    cand, number, blocksize, bs_ext_bits = \
+        cand[good], number[good], blocksize[good], bs_ext_bits[good]
+    if len(cand) == 0:
+        return None
+    order = np.argsort(number, kind="stable")
+    cand, number, blocksize, bs_ext_bits = \
+        cand[order], number[order], blocksize[order], bs_ext_bits[order]
+    # chain validation: contiguous sample coverage from 0, increasing offsets
+    if number[0] != 0 or np.any(np.diff(cand) <= 0):
+        return None
+    if np.any(number[1:] != number[:-1] + blocksize[:-1]):
+        return None
+    if si.total_samples and int(number[-1] + blocksize[-1]) != si.total_samples:
+        return None
+    return (cand.astype(np.int64), blocksize.astype(np.int64),
+            number.astype(np.int64), (bs_ext_bits + sr_ext_bits).astype(np.int64))
 
 
 def check_frame_crc16(data_bytes: bytes, d: np.ndarray, offsets: np.ndarray,
@@ -218,8 +307,9 @@ class StreamDecoder:
         stream_decoder.h:797). Yielded blocks are read-shared with the MD5
         worker thread: treat them as immutable.
 
-        A stream the device path cannot index goes to the host decoder and
-        yields one block. After exhaustion `self.decode_info` carries the
+        A stream the device path cannot index goes to the host decoder, and
+        a variable-blocksize stream to its grouped decode; both yield one
+        block. After exhaustion `self.decode_info` carries the
         decode_all info dict. Not valid with continue_on_error: concealment
         rewrites delivered history and stays on the assembled paths.
         """
@@ -228,7 +318,11 @@ class StreamDecoder:
                              "owns resync/concealment and assembles")
         si = self.streaminfo
         if si.min_blocksize != si.max_blocksize:
-            _variable_not_ported()
+            pcm, info = self._decode_variable(check_crc)
+            self.decode_info = info
+            if len(pcm):
+                yield pcm
+            return
         words, offsets, dec, B = self._device_setup()
         if offsets is None:
             pcm, info = self._host_fallback("host-ambiguous")
@@ -424,12 +518,90 @@ class StreamDecoder:
     def _check_crc16(self, offsets: np.ndarray, ends: np.ndarray) -> np.ndarray:
         return check_frame_crc16(self.data_bytes, self.d, offsets, ends)
 
+    # -- variable-blocksize streams (blocking_strategy=1) ---------------------
+    # Foreign encoders only: neither this encoder nor the reference's emits
+    # them. Frames group by blocksize: each group is a batch of one geometry
+    # for the device decoder; small groups (and anything the index cannot pin
+    # down) go to the sequential host decoder.
+
+    _VAR_MIN_GROUP = 4    # smaller groups decode on the host
+    _VAR_MAX_GROUPS = 8   # distinct device geometries a stream
+
     def _decode_variable(self, check_crc: bool) -> tuple[np.ndarray, dict]:
-        """Variable-blocksize streams: concealing decodes are the sequential
-        host decoder's, as in flac_tpu; the device path is not ported."""
+        si = self.streaminfo
         if self.continue_on_error:
+            # concealment and resync are the sequential path's
             return self._host_fallback("host")
-        _variable_not_ported()
+        words = torch.as_tensor(bytes_to_words(self.d, bucket=True), device=self.device)
+        idx = index_frames_variable(self.d, self.audio_offset, si)
+        if idx is None:
+            return self._host_fallback("host")
+        offsets, bss, snos, exts = idx
+        nfr = len(offsets)
+        total = int(snos[-1] + bss[-1]) if nfr else 0
+        pcm = np.zeros((total, si.channels), np.int32)
+        ends_all = np.zeros(nfr, np.int64)
+        host = None
+        host_frames = overflow_frames = 0
+        # device groups: the most frequent blocksizes, large groups only
+        uniq, counts = np.unique(bss, return_counts=True)
+        top = np.argsort(-counts)[: self._VAR_MAX_GROUPS]
+        dev_bs = {int(b) for b, c in zip(uniq[top], counts[top])
+                  if c >= self._VAR_MIN_GROUP}
+        host_idx = [i for i in range(nfr) if int(bss[i]) not in dev_bs]
+        for bs in sorted(dev_bs):
+            sel = np.flatnonzero(bss == bs)
+            geom = DecoderGeometry(blocksize=int(bs), channels=si.channels,
+                                   bits_per_sample=si.bits_per_sample,
+                                   sample_rate=si.sample_rate,
+                                   max_lpc_order=self.max_lpc_order,
+                                   dynamic_header_ext=True)
+            dec = build_frame_decoder(geom, self.device)
+            B = min(self.batch_frames, len(sel))
+            for s in range(0, len(sel), B):
+                g = sel[s:s + B]
+                nb = len(g)
+                gg = np.concatenate([g, np.repeat(g[-1:], B - nb)]) if nb < B else g
+                gp, ge, gm = dec(words, offsets[gg] * 8, exts[gg])
+                gp = gp.cpu().numpy()[:nb].astype(np.int32)
+                ge_np = ge.cpu().numpy()[:nb] // 8
+                ovf = gm["unary_overflow"].cpu().numpy()[:nb]
+                for j in np.flatnonzero(ovf):
+                    if host is None:
+                        host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                    fpcm, fi = host.decode_frame_at(int(offsets[g[j]]))
+                    gp[j] = fpcm.reshape(gp[j].shape)
+                    ge_np[j] = fi.offset + fi.size
+                    host_frames += 1
+                    overflow_frames += 1
+                for j in range(nb):
+                    k = g[j]
+                    pcm[snos[k]: snos[k] + bs] = gp[j].reshape(-1, si.channels)
+                    ends_all[k] = ge_np[j]
+        for k in host_idx:
+            if host is None:
+                host = hd.HostDecoder(self.data_bytes, check_md5=False)
+            fpcm, fi = host.decode_frame_at(int(offsets[k]))
+            pcm[snos[k]: snos[k] + bss[k]] = fpcm
+            ends_all[k] = fi.offset + fi.size
+            host_frames += 1
+        if nfr:
+            if np.any(ends_all[:-1] > offsets[1:]) or ends_all[-1] > len(self.d):
+                raise StreamDecodeError("frame length overrun — corrupt stream?")
+            if check_crc:
+                bad = self._check_crc16(offsets, ends_all)
+                if len(bad):
+                    raise hd.DecodeError(
+                        f"frame CRC-16 mismatch in frame(s) {bad[:5].tolist()}")
+        if si.total_samples and len(pcm) > si.total_samples:
+            pcm = pcm[: si.total_samples]
+        if self.check_md5 and si.md5sum != b"\x00" * 16:
+            md5 = MD5Context()
+            md5.accumulate(pcm, si.bits_per_sample)
+            if md5.digest() != si.md5sum:
+                raise hd.DecodeError("MD5 signature mismatch")
+        return pcm, dict(frames=nfr, path="device-variable", errors=self.errors,
+                         host_frames=host_frames, overflow_frames=overflow_frames)
 
 
 def decode_bytes_device(data: bytes, check_md5: bool = True, batch_frames: int = 64,

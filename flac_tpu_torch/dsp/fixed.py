@@ -1,5 +1,6 @@
 """Fixed (polynomial) predictors, orders 0-4, batched over frames — the
-encode side of flac_tpu.dsp.fixed (fixed.c:224-350 and :352)."""
+port of flac_tpu.dsp.fixed (fixed.c:224-350 and :352, and the decode-side
+restore of :395)."""
 
 from __future__ import annotations
 
@@ -80,3 +81,26 @@ def fixed_residuals_all_orders(x: torch.Tensor) -> torch.Tensor:
             acc = acc + c * torch.roll(x32, j, dims=-1)
         outs.append(torch.where(t >= o, acc, 0))
     return torch.stack(outs, dim=-2)
+
+
+def fixed_restore(residual: torch.Tensor, warmup: torch.Tensor, order: int
+                  ) -> torch.Tensor:
+    """Decode-side restore for a static order (FLAC__fixed_restore_signal,
+    fixed.c:395), flac_tpu's form: the order-o residual is the o-th finite
+    difference of the signal, so the restore is o nested int64 cumulative
+    sums, each seeded by the matching difference of the warmup samples.
+
+    residual [..., T - order] int32, warmup [..., order]. Returns [..., T]
+    int32 (wrapping, as flac_tpu's cast does)."""
+    if order == 0:
+        return residual
+    cur = warmup.to(torch.int64)
+    seeds = []
+    for _ in range(order):
+        seeds.append(cur[..., 0:1])  # seed_k = (Delta^k x)[k]
+        cur = cur[..., 1:] - cur[..., :-1]
+    out = residual.to(torch.int64)  # (Delta^order x)[t] for t in [order, T)
+    for k in range(order - 1, -1, -1):
+        out = torch.cumsum(torch.cat([seeds[k], out], dim=-1), dim=-1,
+                           dtype=torch.int64)
+    return out.to(torch.int32)

@@ -5,7 +5,9 @@ Every constant and arange carries the dtype flac_tpu gets under
 jax_enable_x64 (float64 scalars, int64 aranges), so the two packages run the
 same arithmetic, and the two-int32-limb wide residual
 (`lpc_residual_limbs`) of the 24-bit family. The decode-side `lpc_restore`
-is not ported (the frame decoder has its own restore).
+runs the restore recurrence: on CUDA tensors the frame decoder's restore
+kernel (csrc/restore_scan.cu), on CPU tensors the plain
+`lpc_restore_plain`.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import math
 import torch
 
 from flac_tpu_torch.dsp import bitmath
+from flac_tpu_torch.kernels import restore_scan as _restore_scan
 
 _LN2 = math.log(2.0)
 
@@ -262,3 +265,55 @@ def lpc_residual_limbs(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
     lim = torch.ones_like(s) << torch.clamp(19 + s, max=30)
     ovf = ((s < 12) & (H.abs() >= lim) & valid).any(dim=-1)
     return res, ovf
+
+
+def lpc_restore_plain(residual: torch.Tensor, qlp: torch.Tensor,
+                      order: torch.Tensor, shift: torch.Tensor,
+                      warmup: torch.Tensor, max_order: int) -> torch.Tensor:
+    """The plain PyTorch lpc_restore, flac_tpu's scan as a loop over time
+    with the whole batch in each step: the history is int64 (newest at
+    column 0), the prediction's shift arithmetic, the result cast to int32."""
+    B, T = residual.shape
+    dev = residual.device
+    res64 = residual.to(torch.int64)
+    hist = torch.zeros((B, max_order), dtype=torch.int64, device=dev)  # x[t-1-j]
+    qlp64 = torch.where(torch.arange(max_order, device=dev)[None, :] < order[:, None],
+                        qlp.to(torch.int64), 0)
+    shift64 = shift.to(torch.int64)
+    w = warmup.to(torch.int64)
+    out = torch.empty((B, T), dtype=torch.int64, device=dev)
+    for t in range(T):
+        pred = (qlp64 * hist).sum(dim=1) >> shift64
+        w_t = w[:, t] if t < max_order else 0
+        x_t = torch.where(t < order, w_t, res64[:, t] + pred)
+        hist = torch.cat([x_t[:, None], hist[:, :-1]], dim=1)
+        out[:, t] = x_t
+    return out.to(torch.int32)
+
+
+def lpc_restore(residual: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
+                shift: torch.Tensor, warmup: torch.Tensor, max_order: int
+                ) -> torch.Tensor:
+    """Decode-side FLAC__lpc_restore_signal[_wide] (lpc.c:795,1061),
+    batched: for t < order x[t] = warmup[t], then x[t] = residual[t] +
+    ((sum_{j < order} qlp[j] * x[t-1-j]) >> shift), in int64.
+
+    residual [B, T] int32 (entries t < order ignored); qlp, warmup [B,
+    max_order] (the first `order` used); order, shift [B], shift in [0, 63].
+    Returns [B, T] int32. CUDA tensors run the frame decoder's restore
+    kernel (one launch, every row coded; max_order <= 32, FLAC's largest
+    order); CPU tensors take lpc_restore_plain."""
+    if residual.device.type == "cpu":
+        return lpc_restore_plain(residual, qlp, order, shift, warmup, max_order)
+    if not 0 <= max_order <= 32:
+        raise ValueError(f"lpc_restore: max_order {max_order} is outside [0, 32]")
+    B, T = residual.shape
+
+    def rows(t):
+        return t.to(torch.int64).reshape(B, max_order)
+
+    x = _restore_scan.restore_scan(
+        residual.to(torch.int32), rows(qlp), order.to(torch.int64),
+        shift.to(torch.int64), rows(warmup),
+        torch.ones(B, dtype=torch.bool, device=residual.device), T, max_order)
+    return x.to(torch.int32)

@@ -1,6 +1,7 @@
-"""Per-frame signal utilities: wasted bits, constant detection, mid/side
-(the port of flac_tpu.dsp.signal; get_wasted_bits_ stream_encoder.c:4108,
-the constant check :3218-3230, mid/side :1991-1992)."""
+"""Per-frame signal utilities: wasted bits, constant detection, mid/side and
+its decode-side undo (the port of flac_tpu.dsp.signal; get_wasted_bits_
+stream_encoder.c:4108, the constant check :3218-3230, mid/side :1991-1992,
+the stereo undo stream_decoder.c:2067-2103)."""
 
 from __future__ import annotations
 
@@ -40,3 +41,20 @@ def mid_side(left: torch.Tensor, right: torch.Tensor
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """mid = (L+R)>>1 (arithmetic, NOT /2), side = L-R (stream_encoder.c:1991)."""
     return (left + right) >> 1, left - right
+
+
+def undo_channel_assignment(ch0: torch.Tensor, ch1: torch.Tensor,
+                            assignment: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Decoder-side stereo undo (stream_decoder.c:2067-2103): (left, right)
+    of the two decoded subframe signals ch0, ch1 [..., T] under each
+    frame's assignment [...] (0 independent, 1 left/side, 2 right/side, 3
+    mid/side). Mid/side: L = ((mid << 1 | (side & 1)) + side) >> 1 and
+    R = ((mid << 1 | (side & 1)) - side) >> 1."""
+    a = assignment[..., None]
+    mid2 = (ch0 << 1) | (ch1 & 1)
+    left = torch.where(a == 1, ch0, torch.where(
+        a == 2, ch0 + ch1, torch.where(a == 3, (mid2 + ch1) >> 1, ch0)))
+    right = torch.where(a == 1, ch0 - ch1, torch.where(
+        a == 2, ch1, torch.where(a == 3, (mid2 - ch1) >> 1, ch1)))
+    return left, right

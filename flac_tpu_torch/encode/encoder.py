@@ -6,11 +6,15 @@ onto the frame encoder, MD5 accumulation, STREAMINFO/seektable statistics
 and the seek-back rewrite at finish (update_metadata_ :2516).
 
 Frames are encoded in batches by encode.frame_encoder on the chosen device
-(None: CUDA); the packed words come back to the host and are written as
-they are (flac_tpu's non-dense emit path). With `verify=True` every batch of
-full frames is decoded where it was packed (decode.frame_decoder's
-verifier) and compared with its input before it is written; the final
-partial frame is not verified, as in flac_tpu.
+(None: CUDA). Two routes, flac_tpu's: on the card (or under
+FLAC_TPU_PACKER=pallas) the dense one, where each batch of full frames is
+compacted on the device into one word stream, of which only the valid
+prefix comes back and is written in one piece (`_emit_dense`); on the CPU
+the padded word matrix comes back and is written frame by frame (`_emit`).
+The final partial frame takes the second route in both. With `verify=True`
+every batch of full frames is decoded where it was packed (decode.
+frame_decoder's verifier) and compared with its input before it is
+written; the final partial frame is not verified, as in flac_tpu.
 """
 
 from __future__ import annotations
@@ -24,8 +28,10 @@ import torch
 from flac_tpu_torch import constants as C
 from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
+from flac_tpu_torch.encode import packer
 from flac_tpu_torch.encode.frame_encoder import (
-    EncoderConfig, build_frame_encoder, resolve_packer_impl)
+    EncoderConfig, build_frame_encoder, build_frame_encoder_dense,
+    resolve_packer_impl, use_dense_packer)
 from flac_tpu_torch.md5 import MD5Context
 from flac_tpu_torch.metadata import (
     MetadataBlock,
@@ -77,8 +83,12 @@ class StreamEncoder:
         self._md5 = MD5Context()
         self._buf = np.zeros((0, self.cfg.channels), np.int32)
         self._frame_no = 0
-        self._encode = build_frame_encoder(self.cfg, device=self.device,
-                                           packer_impl=self._packer_impl)
+        # the dense route compacts each batch on the device, so that only
+        # the compressed bytes cross to the host
+        self._dense = use_dense_packer(self.device)
+        build = build_frame_encoder_dense if self._dense else build_frame_encoder
+        self._encode = build(self.cfg, device=self.device,
+                             packer_impl=self._packer_impl)
         self._finish_encoders: dict[int, object] = {}
         self.stats = EncodeStats()
         self._finished = False
@@ -165,48 +175,94 @@ class StreamEncoder:
                 batch = np.concatenate(
                     [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
             fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
-            words, total_bits, _info = self._encode(batch, fnos)
-            self.stats.batches += 1
-            if self.verify:
-                self._run_verify(words, nb, batch)
-            self._emit(words.cpu().numpy(), total_bits.cpu().numpy(), nb)
+            if self._dense:
+                stream, total, total_bits, _info = self._encode(batch, fnos)
+                self.stats.batches += 1
+                total_bits = total_bits.cpu().numpy()
+                if self.verify:
+                    self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch)
+                total = int(total)
+                host = stream[: (total + 3) // 4].cpu().numpy()
+                self._emit_dense(host, total, total_bits, nb)
+            else:
+                words, total_bits, _info = self._encode(batch, fnos)
+                self.stats.batches += 1
+                if self.verify:
+                    self._run_verify(words, nb, batch)
+                self._emit(words.cpu().numpy(), total_bits.cpu().numpy(), nb)
             self._frame_no += nb
             self.stats.samples += nb * bs
 
+    def _frame_written(self, i: int, n: int) -> None:
+        """Stats and the seektable fill-in of the batch's frame i, of n
+        bytes, as it streams out (write_frame_, stream_encoder.c:2453-2470):
+        claim the pending points inside the frame."""
+        bs = self.cfg.blocksize
+        sample_pos = (self._frame_no + i) * bs
+        while self._pending_seekpoints and self._pending_seekpoints[0] < sample_pos + bs:
+            target = self._pending_seekpoints[0]
+            if target < sample_pos:
+                self._pending_seekpoints.pop(0)
+                continue
+            if target < sample_pos + bs:
+                self._seek_fill[target] = (sample_pos, self.stats.bytes_written)
+                self._pending_seekpoints.pop(0)
+        self.stats.bytes_written += n
+        self.stats.frames += 1
+        self.stats.min_framesize = min(self.stats.min_framesize, n)
+        self.stats.max_framesize = max(self.stats.max_framesize, n)
+
     def _emit(self, words: np.ndarray, total_bits: np.ndarray,
               nframes: int) -> None:
+        """Write the batch's first `nframes` frames from the padded word
+        matrix, one write a frame."""
         byte_view = words.astype(">u4").view(np.uint8).reshape(words.shape[0], -1)
         lengths = (total_bits + 7) // 8
-        bs = self.cfg.blocksize
         for i in range(nframes):
             n = int(lengths[i])
             assert total_bits[i] % 8 == 0
             assert n <= byte_view.shape[1], "frame overflowed static pack buffer"
-            frame_index = self._frame_no + i
-            sample_pos = frame_index * bs
-            # seektable fill-in as frames stream out (write_frame_,
-            # stream_encoder.c:2453-2470): claim pending points <= sample_pos
-            while self._pending_seekpoints and self._pending_seekpoints[0] < sample_pos + bs:
-                target = self._pending_seekpoints[0]
-                if target < sample_pos:
-                    self._pending_seekpoints.pop(0)
-                    continue
-                if target < sample_pos + bs:
-                    self._seek_fill[target] = (sample_pos,
-                                               self.stats.bytes_written)
-                    self._pending_seekpoints.pop(0)
             self.out.write(byte_view[i, :n].tobytes())
-            self.stats.bytes_written += n
-            self.stats.frames += 1
-            self.stats.min_framesize = min(self.stats.min_framesize, n)
-            self.stats.max_framesize = max(self.stats.max_framesize, n)
+            self._frame_written(i, n)
 
-    def _run_verify(self, words: torch.Tensor, nframes: int,
+    def _emit_dense(self, host_words: np.ndarray, total: int,
+                    total_bits: np.ndarray, nframes: int) -> None:
+        """Write the batch's first `nframes` frames from the compacted
+        stream's valid words (fetched from the device in one copy): they
+        are a contiguous prefix (the padding frames come after them), so
+        one write."""
+        lengths = (total_bits + 7) // 8
+        want = int(lengths[:nframes].sum())
+        assert want <= total <= 4 * len(host_words)
+        for i in range(nframes):
+            self._frame_written(i, int(lengths[i]))
+        # big-endian bytes in one copy (stream_words_to_bytes' serialization),
+        # written without another
+        self.out.write(host_words.view(np.uint32).astype(">u4").view(np.uint8)[:want])
+
+    def _dense_rows(self, stream: torch.Tensor, total_bits: np.ndarray,
+                    nframes: int) -> torch.Tensor:
+        """flac_tpu's dense verify input, built on the device from the
+        compacted stream: the first `nframes` frames, each a row of maxb
+        bytes (the batch's largest frame), zero past its frame."""
+        lengths = (total_bits[:nframes].astype(np.int64) + 7) // 8
+        maxb = int(lengths.max())
+        starts = np.cumsum(lengths) - lengths
+        dev = stream.device
+        data = packer.big_endian_bytes(stream[: (int(lengths.sum()) + 3) // 4])
+        col = torch.arange(maxb, dtype=torch.int64, device=dev)
+        idx = torch.as_tensor(starts, device=dev)[:, None] + col
+        inside = col < torch.as_tensor(lengths, device=dev)[:, None]
+        return torch.where(inside, data[torch.clamp(idx, max=data.numel() - 1)], 0)
+
+    def _run_verify(self, rows: torch.Tensor, nframes: int,
                     pcm_batch: np.ndarray) -> None:
         """Verify-while-encoding (the reference's decoder-in-the-loop,
-        stream_encoder.c:314,977-1006): decode each packed frame on the
-        device and compare it with the input PCM."""
-        got = self._verifier(words)[:nframes].to(torch.int32)
+        stream_encoder.c:314,977-1006): decode the frames where they were
+        packed and compare them with the input PCM. `rows` are the padded
+        word rows (int32 [B, W]) or the dense route's byte rows (uint8
+        [nframes, maxb])."""
+        got = self._verifier(rows)[:nframes].to(torch.int32)
         want = torch.as_tensor(pcm_batch[:nframes], device=self.device)
         if torch.equal(got, want):
             return

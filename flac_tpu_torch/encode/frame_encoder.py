@@ -16,8 +16,10 @@ the -p precision sweep, escape coding, and both residual datapaths
 (stream_encoder.c:888): the 32-bit one, and the wide one of streams with
 bps + log2(T) + 1 > 30, through two int32 limbs where they provably fit
 (the 24-bit family) and int64 otherwise; the fractional final block too.
-The dense compaction path (`build_frame_encoder_dense`) is not ported
-(ROADMAP queue 1 item 12). The device follows the tensors;
+`build_frame_encoder_dense` adds the dense compaction: the batch's
+frames back to back in one word stream on the device (packer's
+compact_stream_words; the CUDA kernel on a GPU). The device follows the
+tensors;
 `build_frame_encoder` takes `device=None`, meaning CUDA (see device.py).
 """
 
@@ -292,6 +294,39 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
     return _build_frame_encoder(cfg, blocksize, device,
                                 resolve_packer_impl(packer_impl, device),
                                 _wide_int64())[0]
+
+
+def use_dense_packer(device: torch.device) -> bool:
+    """flac_tpu's `_use_pallas_packer` rule for the dense path, read when a
+    stream encoder is built: FLAC_TPU_PACKER=pallas forces it, =xla never
+    takes it, and otherwise the device decides: CUDA encodes through the
+    dense path (with either fill), the CPU does not."""
+    forced = os.environ.get("FLAC_TPU_PACKER")
+    if forced == "pallas":
+        return True
+    if forced == "xla":
+        return False
+    return device.type == "cuda"
+
+
+def build_frame_encoder_dense(cfg: EncoderConfig,
+                              device: str | torch.device | None = None,
+                              packer_impl: str | None = None):
+    """build_frame_encoder with the packed frames compacted into one dense
+    word stream on the device, so that the host fetches about the
+    compressed size instead of the padded word matrix. Returns fn(pcm [B,
+    T, Ch] int, frame_numbers [B]) -> (stream [B*maxwords] int32 (uint32
+    bits; serialize the valid prefix with packer.stream_words_to_bytes),
+    total_bytes int64 scalar, total_bits [B] int32, info dict), on the
+    device."""
+    encode = build_frame_encoder(cfg, device=device, packer_impl=packer_impl)
+
+    def encode_dense(pcm, frame_numbers):
+        words, total_bits, info = encode(pcm, frame_numbers)
+        stream, total = packer.compact_stream_words_kernel(words, total_bits)
+        return stream, total, total_bits, info
+
+    return encode_dense
 
 
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,

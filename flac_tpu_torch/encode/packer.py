@@ -12,7 +12,10 @@ fill and CRC-16) for CUDA tensors, and the plain PyTorch `pack_frames`
 `pack_fields_kernel` / `pack_fields` is the word fill alone. The merged
 packer (`pack_fields_merged_kernel` / plain `pack_fields_merged`, or
 `merged=True`) fills the same words from merged field quads. Field values
-MUST be pre-masked to their nbits.
+MUST be pre-masked to their nbits. The dense route's compaction of a
+batch's packed frames into one word stream has the same two versions
+behind `compact_stream_words_kernel`: one launch of csrc/compact_stream.cu
+for CUDA tensors, the plain `compact_stream_words` for CPU tensors.
 
 torch has no uint32 shifts and no XOR reduction, so the uint32 arithmetic
 of flac_tpu runs here in int64 with explicit 32-bit masks, and XOR sums go
@@ -28,6 +31,7 @@ import torch
 
 from flac_tpu_torch import crc as crc_mod
 from flac_tpu_torch.dsp.bitmath import tree_reduce
+from flac_tpu_torch.kernels import compact_stream as _compact_stream
 from flac_tpu_torch.kernels import pack_words as _pack_words
 
 # Max significant bits in any field value: a RICE2 codeword has k+1 <= 31
@@ -237,6 +241,88 @@ def stream_words_to_bytes(host_words: np.ndarray, total: int) -> np.ndarray:
     """Host-side serializer: big-endian word bytes, trimmed to `total`."""
     be = np.ascontiguousarray(host_words, dtype=np.uint32).astype(">u4")
     return np.frombuffer(be.tobytes(), np.uint8)[:int(total)]
+
+
+# ---------------------------------------------------------------------------
+# Dense stream compaction: the batch's frames back to back in one word
+# stream on the device, so that only the compressed bytes come back to the
+# host (flac_tpu's compact_stream_words; the CUDA kernel is
+# csrc/compact_stream.cu).
+# ---------------------------------------------------------------------------
+
+
+def _byte_prefix_mask(v: torch.Tensor) -> torch.Tensor:
+    """Mask of the first `v` (clamped to [0, 4]) big-endian bytes of a word."""
+    partial = (_MASK32 << ((4 - torch.clamp(v, 1, 3)) * 8)) & _MASK32
+    return torch.where(v >= 4, _MASK32, torch.where(v <= 0, 0, partial))
+
+
+def compact_stream_words(words: torch.Tensor, total_bits: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch compaction, flac_tpu's formulation: byte starts from
+    a cumsum, source bytes past each frame's tail masked, each frame's words
+    funnel-shifted by its byte phase and written in frame order (flac_tpu's
+    scan of dynamic_update_slices), the heads of frames that start mid-word
+    added into the word before, the bytes past the stream's end zeroed.
+
+    words [B, W] int32 (big-endian frame words), total_bits [B] int32 (each
+    a multiple of 8). Returns (stream [B*W] int32 of uint32 bits, whose
+    bytes 4k..4k+3 are word k's big-endian bytes, total int64 scalar, the
+    stream's byte count)."""
+    B, W = words.shape
+    dev = words.device
+    nbytes = (total_bits.to(torch.int64) + 7) // 8
+    starts = torch.cumsum(nbytes, 0, dtype=torch.int64) - nbytes
+    total = starts[-1] + nbytes[-1]
+    Nw = B * W
+    jj = torch.arange(W, dtype=torch.int64, device=dev)
+    u = (words.to(torch.int64) & _MASK32) & _byte_prefix_mask(nbytes[:, None] - 4 * jj)
+    # frame f's word j shifted so that output word (starts[f] + 3) >> 2 + j
+    # holds frame bytes [(4 - p) + 4j, 8 - p + 4j) for phase p = starts[f] & 3
+    p8 = ((starts & 3) * 8)[:, None]
+    nxt = torch.cat([u[:, 1:], torch.zeros((B, 1), dtype=torch.int64, device=dev)], 1)
+    sh = torch.where(p8 == 0, u, ((u << torch.clamp(32 - p8, max=31)) & _MASK32)
+                     | (nxt >> p8))
+    outpos = ((starts + 3) >> 2).tolist()
+    buf = torch.zeros(Nw + W, dtype=torch.int64, device=dev)
+    for f in range(B):  # in frame order; the start clamps as in a DUS
+        pos = min(max(outpos[f], 0), Nw)
+        buf[pos:pos + W] = sh[f]
+    d0 = starts & 3
+    head = torch.where(d0 > 0, u[:, 0] >> (8 * d0), 0)
+    w0 = torch.clamp(starts >> 2, 0, Nw - 1)
+    heads = torch.zeros(Nw, dtype=torch.int64, device=dev).index_add_(0, w0, head)
+    out = buf[:Nw] | (heads & _MASK32)
+    k = torch.arange(Nw, dtype=torch.int64, device=dev)
+    out = out & _byte_prefix_mask(total - 4 * k)
+    return to_int32_bits(out), total
+
+
+def compact_stream_words_kernel(words: torch.Tensor, total_bits: torch.Tensor
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """compact_stream_words done by the hand-written CUDA kernel (one launch,
+    one block a frame). CUDA tensors launch the kernel (a failure raises);
+    CPU tensors take the plain version."""
+    if words.device.type == "cpu":
+        return compact_stream_words(words, total_bits)
+    return _compact_stream.compact_stream(words, total_bits)
+
+
+def big_endian_bytes(words: torch.Tensor) -> torch.Tensor:
+    """The bytes of int32 words [..., n] (uint32 bits) in stream order, where
+    they lie: uint8 [..., 4n]."""
+    w = words.to(torch.int64) & _MASK32
+    be = torch.stack([(w >> s) & 0xFF for s in (24, 16, 8, 0)], dim=-1)
+    return be.to(torch.uint8).flatten(-2)
+
+
+def compact_stream_bytes(words: torch.Tensor, total_bits: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """compact_stream_words_kernel, then the stream serialized to bytes where
+    it lies: (stream [4*B*W] uint8, total int64 scalar). The encoder fetches
+    words instead and serializes on the host."""
+    out, total = compact_stream_words_kernel(words, total_bits)
+    return big_endian_bytes(out), total
 
 
 # ---------------------------------------------------------------------------

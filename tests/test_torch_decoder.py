@@ -308,14 +308,13 @@ def test_geometry_and_words_match():
     (dict(GEOM, dynamic_header_ext=True), None),
 ])
 def test_unported_decoder_paths_raise(monkeypatch, geom, env):
-    """Per-frame header widths still raise; the first three cases raised
-    until the wide scan was ported, and now build a decoder on it."""
+    """Every case raised once and now builds a decoder: the first three on
+    the wide scan, the last with per-frame header widths."""
     if env:
         monkeypatch.setenv("FLAC_TPU_SCAN", env)
     g = t_fd.DecoderGeometry(**geom)
     if g.dynamic_header_ext:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_fd.build_frame_decoder(g, device="cpu")
+        assert callable(t_fd.build_frame_decoder(g, device="cpu"))
     else:
         assert not t_fd._use_narrow_scan(g)
         assert callable(t_fd.build_frame_decoder(g, device="cpu"))

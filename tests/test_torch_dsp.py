@@ -282,3 +282,54 @@ def test_config_and_static_tables_equal(level):
             np.testing.assert_array_equal(tt, jt)
     np.testing.assert_array_equal(t_packer.xpow_table_np(1024, 0x07, 8),
                                   j_packer.xpow_table_np(1024, 0x07, 8))
+
+
+# --- the decode side: lpc_restore, fixed_restore, undo_channel_assignment ---
+
+
+def _restore_case(seed, max_order, B=6, T=300):
+    """Residuals, coefficients, orders (1..max_order), shifts and warmup
+    from a seed; the last row's coefficients are large enough for the
+    int64 history to wrap, which both packages do alike."""
+    rng = np.random.default_rng(seed)
+    res = rng.integers(-3000, 3000, (B, T)).astype(np.int32)
+    qlp = rng.integers(-600, 600, (B, max_order)).astype(np.int32)
+    qlp[-1] = rng.integers(-(1 << 14), 1 << 14, max_order)
+    order = rng.integers(1, max_order + 1, B).astype(np.int32)
+    shift = rng.integers(0, 16, B).astype(np.int32)
+    warm = rng.integers(-30000, 30000, (B, max_order)).astype(np.int32)
+    return res, qlp, order, shift, warm
+
+
+@pytest.mark.parametrize("seed,max_order", [(0, 8), (1, 32), (2, 1)])
+def test_lpc_restore_matches(seed, max_order):
+    args = _restore_case(seed, max_order)
+    ref = _jit_call(j_lpc.lpc_restore, (*args, max_order), {})
+    got = _torch_call(t_lpc.lpc_restore, (*args, max_order), {})
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("order", range(5))
+def test_fixed_restore_matches(order):
+    rng = np.random.default_rng(10 + order)
+    res = rng.integers(-40000, 40000, (2, 3, T - order)).astype(np.int32)
+    warm = rng.integers(-32768, 32768, (2, 3, order)).astype(np.int32)
+    ref = _jit_call(j_fixed.fixed_restore, (res, warm, order), {})
+    got = _torch_call(t_fixed.fixed_restore, (res, warm, order), {})
+    assert got.dtype == torch.int32 and got.shape == (2, 3, T)
+    np.testing.assert_array_equal(_np(got), _np(ref))
+
+
+@pytest.mark.parametrize("assignment", range(4))
+def test_undo_channel_assignment_matches(assignment):
+    """One assignment for every frame, then all four mixed over the batch."""
+    x = _signal(seed=assignment)
+    mid, side = x[:, 0], x[:, 1]
+    a = np.full(2, assignment, np.int32)
+    mixed = np.arange(4, dtype=np.int32)
+    for ch0, ch1, asg in ((mid, side, a), (x[0], x[1], mixed)):
+        ref = _jit_call(j_signal.undo_channel_assignment, (ch0, ch1, asg), {})
+        got = _torch_call(t_signal.undo_channel_assignment, (ch0, ch1, asg), {})
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(_np(g), _np(r))

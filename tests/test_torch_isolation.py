@@ -5,6 +5,7 @@ refuse CPU tensors instead of computing anything."""
 
 from __future__ import annotations
 
+import io
 import os
 import subprocess
 import sys
@@ -15,12 +16,15 @@ import pytest
 import torch
 
 from flac_tpu_torch.decode import frame_decoder as t_fd
+from flac_tpu_torch.decode import seek as t_seek
 from flac_tpu_torch.decode import stream as t_stream
+from flac_tpu_torch.decode import streaming as t_streaming
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import encoder as t_encoder
 from flac_tpu_torch.encode import frame_encoder as t_fe
 from flac_tpu_torch.encode import packer as t_packer
-from flac_tpu_torch.kernels import pack_words, residual_scan, restore_scan
+from flac_tpu_torch.dsp import lpc as t_lpc
+from flac_tpu_torch.kernels import compact_stream, pack_words, residual_scan, restore_scan
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -76,6 +80,12 @@ def test_default_device_is_cuda_and_raises_without_gpu(no_cuda, tmp_path):
         t_stream.StreamDecoder(b"fLaC")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_stream.decode_bytes_device(b"fLaC")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_seek.SeekableDecoder(b"fLaC")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_streaming.ChunkedStreamDecoder(io.BytesIO(b"fLaC"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_fe.build_frame_encoder_dense(cfg)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -120,7 +130,7 @@ def test_cpu_tensors_leave_the_new_launch_counters_alone():
     values = rng.integers(0, 1 << 62, size=(3, 50)) & ((1 << nbits.astype(np.int64)) - 1)
     v, n = torch.as_tensor(values), torch.as_tensor(nbits)
     counts = (pack_words.pack_words_multi.launches, residual_scan.launches,
-              restore_scan.launches)
+              restore_scan.launches, compact_stream.launches)
     got = t_packer.pack_fields_merged_kernel(v, n, 60)
     ref = t_packer.pack_fields_merged(v, n, 60)
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
@@ -131,8 +141,17 @@ def test_cpu_tensors_leave_the_new_launch_counters_alone():
     assert all(torch.equal(a, b) for a, b in zip((res, pos, ovf), ref[1:]))
     rargs = (res, *t_fd.restore_inputs(sub, 4), 8, 4)
     assert torch.equal(t_fd.restore_scan_kernel(*rargs), t_fd.restore_scan(*rargs))
+    words = torch.as_tensor(np.random.default_rng(7).integers(
+        -2 ** 31, 2 ** 31, (3, 6), dtype=np.int64).astype(np.int32))
+    tbits = torch.tensor([96, 40, 184], dtype=torch.int32)
+    got = t_packer.compact_stream_words_kernel(words, tbits)
+    ref = t_packer.compact_stream_words(words, tbits)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    largs = (res, torch.ones((2, 4), dtype=torch.int32), torch.tensor([2, 4]),
+             torch.tensor([1, 0]), torch.ones((2, 4), dtype=torch.int32), 4)
+    assert torch.equal(t_lpc.lpc_restore(*largs), t_lpc.lpc_restore_plain(*largs))
     assert counts == (pack_words.pack_words_multi.launches, residual_scan.launches,
-                      restore_scan.launches)
+                      restore_scan.launches, compact_stream.launches)
 
 
 def test_pack_stage_on_cpu_tensors_runs_the_plain_composition():
@@ -171,3 +190,5 @@ def test_new_launchers_refuse_cpu_tensors():
     i64 = torch.zeros(2, dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
         restore_scan.restore_scan(res, c, i64, i64, c, i64 == 0, 8, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        compact_stream.compact_stream(res, i64.to(torch.int32))

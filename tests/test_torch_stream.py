@@ -130,8 +130,15 @@ def test_variable_blocksize_not_ported(tmp_path):
     from tests.test_ogg import _make_variable_blocksize_flac
 
     data, _, pcm = _make_variable_blocksize_flac([64] * 8 + [160] * 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_stream.decode_bytes_device(data, device="cpu")
+    # ported: the grouped device decode gives flac_tpu's PCM, path and frames
+    kw = dict(batch_frames=8, max_lpc_order=12)
+    jp, _jsi, jinfo = j_stream.decode_bytes_device(data, **kw)
+    tp, _tsi, tinfo = t_stream.decode_bytes_device(data, device="cpu", **kw)
+    np.testing.assert_array_equal(tp, jp)
+    np.testing.assert_array_equal(tp.reshape(-1), pcm)
+    for k in ("frames", "path", "errors"):
+        assert tinfo[k] == jinfo[k], k
+    assert tinfo["path"] == "device-variable" and tinfo["host_frames"] == 0
     # concealing decodes of such streams are the host decoder's, as in flac_tpu
     out, _si, info = t_stream.decode_bytes_device(data, device="cpu",
                                                   continue_on_error=True)
