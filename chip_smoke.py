@@ -161,8 +161,29 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     ChunkedStreamDecoder over an io.BytesIO in 1 MiB windows
                     gives the input back (MD5 checked); lpc_restore on the
                     card (one restore launch) against its plain version on
-                    the LPC subframes of the stream's first 512 frames.
-15. the `kernels` line, one entry per ported kernel, with its launches on its
+                    the LPC subframes of the stream's first 512 frames, and
+                    both timed beside the restore's bound for those rows.
+15. replaygain     — the equal-loudness kernel (csrc/iir_scan.cu, both IIR
+                    stages in one launch) against its plain version on the
+                    card, on 0.25 s excerpts at 44.1 kHz (loud, and near
+                    silent), 96 kHz 24-bit and 8 kHz near silent: within
+                    1e-9 of the output's peak, bit for bit equal to
+                    replaygain.fma_reference (flac_tpu's order of
+                    operations) on the first 300 samples, equal title gains
+                    from both routes; the float64 FMA and add latencies by a
+                    one-thread probe. Then an album of four 44.1 kHz titles
+                    (3, 3.5, 4 and 4.5 min, each at its own loudness)
+                    encoded at level 5 with a PADDING block and tagged by
+                    add_replay_gain_tags: one kernel launch a title, the
+                    five tags in flac_tpu's formats, the title gains rising
+                    as the loudness falls, the audio bytes untouched, each
+                    file decoding on the card to its input (MD5 checked);
+                    the album again by stage (decode, upload, kernel, copy
+                    back, host statistics); the kernel at the first title's
+                    shape against the plain version; and
+                    `metaflac --add-replay-gain` on phase 8's 24-bit/96 kHz
+                    stream, on the card by the device rule.
+16. the `kernels` line, one entry per ported kernel, with its launches on its
    path, error against the plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
@@ -175,6 +196,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -199,6 +221,19 @@ HIRES_RATE = 96000          # the hi-res archival format: 24-bit/96 kHz stereo a
 HIRES_SECONDS = 30
 PE_SECONDS = 10             # the -p and escape-coding encode of that format
 WIDE_SECONDS = 5            # the 28- and 32-bit streams (44.1 kHz stereo, -5)
+# ReplayGain's album: four 44.1 kHz stereo 16-bit titles at level 5 (15 min
+# in all), each at its own loudness (a share of make_pcm's level)
+ALBUM_MINUTES = (3.0, 3.5, 4.0, 4.5)
+ALBUM_LOUDNESS = (1.0, 0.5, 0.2, 0.05)
+RG_EXCERPT_S = 0.25         # the kernel-against-plain excerpts
+RG_EXACT = 300              # samples a channel held against fma_reference
+RG_REL_TOL = 1e-9           # kernel against plain, of the output's peak
+# float64 operations a second on an H100 SXM outside the tensor cores
+# (NVIDIA data sheet: 34 TFLOP/s, an FMA counted as two)
+FP64_FLOPS_PER_S = 34e12
+# float64 operations the filter does a sample and channel: 26 FMAs (two
+# flops each) and 6 additions or subtractions (csrc/iir_scan.cu)
+RG_FLOPS_PER_SAMPLE = 26 * 2 + 6
 # the SHA-256 of the streams of phases 4 and 8 as the padded route writes
 # them: the dense route must give the same bytes
 SHA256_60S_16BIT_L5 = "42e870d8dfd0eacf428343ecfac8905ae86f67c8a6dd5b6d83470af0fee9847d"
@@ -566,7 +601,10 @@ def main() -> None:
     from flac_tpu_torch.kernels import residual_scan as rs
     from flac_tpu_torch.kernels import restore_scan as rr
     from flac_tpu_torch.md5 import MD5Context
-    from flac_tpu_torch.metadata import parse_metadata
+    from flac_tpu_torch import replaygain as rg
+    from flac_tpu_torch.cli import metaflac
+    from flac_tpu_torch.kernels import iir_scan as iir
+    from flac_tpu_torch.metadata import Padding, get_tags, parse_metadata
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -1693,13 +1731,243 @@ def main() -> None:
     if lpc_err or lpc_launches != 1:
         raise AssertionError(f"lpc_restore on the card: error {lpc_err}, "
                              f"{lpc_launches} restore launches")
+    lpc_ms = time_ms(lambda: lpc.lpc_restore(*largs))
+    lpc_plain_ms = time_ms(lambda: lpc.lpc_restore_plain(*largs), iters=2, warmup=0)
+    # as the restore's bound: res read, x written, coefficients and warmup
+    # read once; (T - order) * order multiply-adds a row
+    lpc_rows_n, lpc_order = int(largs[0].shape[0]), largs[2].clamp(0, DECODE_MAXORD)
+    lpc_bytes_ms = (lpc_rows_n * BLOCKSIZE * (4 + 8) + lpc_rows_n * DECODE_MAXORD * 16
+                    + lpc_rows_n * 17) / HBM_BYTES_PER_S * 1e3
+    lpc_ops_ms = int(((BLOCKSIZE - lpc_order) * lpc_order).sum()) / INT32_MACS_PER_S * 1e3
     emit({"phase": "seek_stream", "card": card, "decode_range": seek_cases,
-          "chunked": chunked, "lpc_restore": {"rows": int(largs[0].shape[0]),
-                                              "max_abs_err": lpc_err,
-                                              "restore_scan_launches": lpc_launches}})
+          "chunked": chunked, "lpc_restore": {"rows": lpc_rows_n, "max_abs_err": lpc_err,
+                                              "restore_scan_launches": lpc_launches,
+                                              "kernel_ms": lpc_ms, "plain_ms": lpc_plain_ms,
+                                              "bound_ms": max(lpc_bytes_ms, lpc_ops_ms),
+                                              "bound_by": "bytes" if lpc_bytes_ms >= lpc_ops_ms
+                                              else "operations"}})
     del lpc_rows, largs, xk, xp
 
-    # --- 15. kernels line ---------------------------------------------------
+    # --- 15. replaygain: the equal-loudness kernel, an album, metaflac --------
+    def rg_plain(x, fi):
+        return rg.iir_filter(rg.A_BUTTER[fi], rg.B_BUTTER[fi],
+                             rg.iir_filter(rg.A_YULE[fi], rg.B_YULE[fi], x))
+
+    def rg_check(name, sig, rate, bps):
+        """The kernel against the plain version on the card, on the scaled
+        input GainAnalysis gives them: the error of the whole output, bit
+        equality with fma_reference on the first RG_EXACT samples, and equal
+        title gains from the two routes."""
+        fi = rg.SAMPLE_RATES.index(rate)
+        gk, gp = rg.GainAnalysis(rate), rg.GainAnalysis(rate)
+        x = gk.scaled_input(sig, bps)
+        iir.launches = 0
+        yk = rg.equal_loudness(x, fi)
+        yp = rg_plain(x, fi)
+        torch.cuda.synchronize()
+        if iir.launches != 1:
+            raise AssertionError(f"{name}: {iir.launches} kernel launches for one call")
+        peak = float(yp.abs().max())
+        abs_err = float((yk - yp).abs().max())
+        xe = x[:, :RG_EXACT].cpu().numpy()
+        exact = np.stack([rg.fma_reference(rg.A_BUTTER[fi], rg.B_BUTTER[fi], rg.fma_reference(
+            rg.A_YULE[fi], rg.B_YULE[fi], xe[c])) for c in range(2)])
+        exact_equal = bool(np.array_equal(yk[:, :RG_EXACT].cpu().numpy(), exact))
+        out_k, out_p = yk.cpu().numpy(), yp.cpu().numpy()
+        gk.add_windows(out_k)
+        gp.add_windows(out_p)
+        case = {"case": name, "sample_rate": rate, "bits_per_sample": bps,
+                "samples_per_channel": int(x.shape[1]), "peak": peak, "max_abs_err": abs_err,
+                "max_rel_err": abs_err / peak, "share_exactly_equal":
+                float((out_k == out_p).mean()), "equals_fma_reference": exact_equal,
+                "title_gain_kernel": gk.title_gain(), "title_gain_plain": gp.title_gain()}
+        if not abs_err <= RG_REL_TOL * peak or not exact_equal \
+                or case["title_gain_kernel"] != case["title_gain_plain"]:
+            raise AssertionError(f"the equal-loudness kernel against its plain version: {case}")
+        return case, x
+
+    def rate_excerpt(rate, seed, level):
+        sig = make_pcm(int(rate * RG_EXCERPT_S), seed=seed, rate=rate)
+        return np.round(sig * level).astype(np.int32)
+
+    rg_cases = [rg_check("44100_loud", pcm[: int(SAMPLE_RATE * RG_EXCERPT_S)], SAMPLE_RATE,
+                         16)[0],
+                rg_check("96000_24bit", pcm24[: int(HIRES_RATE * RG_EXCERPT_S)], HIRES_RATE,
+                         24)[0],
+                rg_check("8000_near_silent", rate_excerpt(8000, 81, 2e-4), 8000, 16)[0],
+                rg_check("44100_near_silent", rate_excerpt(SAMPLE_RATE, 82, 1e-4),
+                         SAMPLE_RATE, 16)[0]]
+    lat = {}
+    for op in ("fma", "add"):
+        lat[op] = (iir.fp64_latency_probe(1 << 22, op) - iir.fp64_latency_probe(1 << 21, op)
+                   ) / (1 << 21) * 1e6  # ns
+    # the loop-carried path a sample: 2 dependent FMAs and 4 additions
+    ns_per_sample_bound = 2 * lat["fma"] + 4 * lat["add"]
+
+    # the album: encode on the card, tag through add_replay_gain_tags
+    album_dir = tempfile.TemporaryDirectory()
+    paths, titles_pcm, encoded, album_make_s, album_encode_s = [], [], [], 0.0, 0.0
+    for k, (minutes, level) in enumerate(zip(ALBUM_MINUTES, ALBUM_LOUDNESS)):
+        t0 = time.perf_counter()
+        tp = np.round(make_pcm(int(minutes * 60 * SAMPLE_RATE), seed=70 + k) * level
+                      ).astype(np.int32)
+        album_make_s += time.perf_counter() - t0
+        path_k = os.path.join(album_dir.name, f"title{k}.flac")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_file(tp, SAMPLE_RATE, 16, path_k, level=5, metadata=[Padding(length=8192)])
+        torch.cuda.synchronize()
+        album_encode_s += time.perf_counter() - t0
+        paths.append(path_k)
+        titles_pcm.append(tp)
+        with open(path_k, "rb") as f:
+            encoded.append(f.read())
+    torch.cuda.synchronize()
+    iir.launches = 0
+    t0 = time.perf_counter()
+    rg.add_replay_gain_tags(paths)
+    torch.cuda.synchronize()
+    album_wall = time.perf_counter() - t0
+    album_launches = iir.launches
+    if album_launches != len(paths):
+        raise AssertionError(f"the album launched the kernel {album_launches} times for "
+                             f"{len(paths)} titles")
+
+    def check_tags(path_k, before):
+        """The five tags in flac_tpu's formats, the audio bytes untouched;
+        returns (title gain, title peak, album gain, album peak) as read."""
+        with open(path_k, "rb") as f:
+            after = f.read()
+        if after[parse_metadata(after)[1]:] != before[parse_metadata(before)[1]:]:
+            raise AssertionError(f"tagging changed the audio bytes of {path_k}")
+        vc = get_tags(path_k)
+        tags = {t: vc.find_entry(t) for t in (rg.TAG_REFERENCE_LOUDNESS, rg.TAG_TITLE_GAIN,
+                                              rg.TAG_TITLE_PEAK, rg.TAG_ALBUM_GAIN,
+                                              rg.TAG_ALBUM_PEAK)}
+        formats = {rg.TAG_REFERENCE_LOUDNESS: r"89\.0 dB", rg.TAG_TITLE_GAIN: r"[+-]\d+\.\d\d dB",
+                   rg.TAG_ALBUM_GAIN: r"[+-]\d+\.\d\d dB", rg.TAG_TITLE_PEAK: r"\d\.\d{8}",
+                   rg.TAG_ALBUM_PEAK: r"\d\.\d{8}"}
+        for tag, pattern in formats.items():
+            if tags[tag] is None or not re.fullmatch(pattern, tags[tag]):
+                raise AssertionError(f"{path_k}: {tag}={tags[tag]!r}")
+        if len(vc.comments) != len(set(c.split("=")[0] for c in vc.comments)):
+            raise AssertionError(f"{path_k}: a tag is written twice: {vc.comments}")
+        return (float(tags[rg.TAG_TITLE_GAIN].split()[0]), float(tags[rg.TAG_TITLE_PEAK]),
+                float(tags[rg.TAG_ALBUM_GAIN].split()[0]), float(tags[rg.TAG_ALBUM_PEAK]))
+
+    album_tags = [check_tags(p, e) for p, e in zip(paths, encoded)]
+    if len({t[2:] for t in album_tags}) != 1:
+        raise AssertionError(f"the titles carry different album tags: {album_tags}")
+    if [t[0] for t in album_tags] != sorted(t[0] for t in album_tags) \
+            or len({t[0] for t in album_tags}) != len(album_tags):
+        raise AssertionError(f"the title gains do not rise as the loudness falls: {album_tags}")
+    # every file still decodes on the card to its input, MD5 checked
+    for p, tp in zip(paths, titles_pcm):
+        with open(p, "rb") as f:
+            if not np.array_equal(st.decode_bytes_device(f.read())[0], tp):
+                raise AssertionError(f"{p} does not decode to its input after tagging")
+    # the album again, by stage: the same steps as compute_replay_gain
+    ga = None
+    stages = []
+    for k, p in enumerate(paths):
+        with open(p, "rb") as f:
+            data_k = f.read()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pcm_k, si_k, _ = st.decode_bytes_device(data_k, check_md5=False)
+        decode_s = time.perf_counter() - t0
+        if ga is None:
+            ga = rg.GainAnalysis(si_k.sample_rate)
+        t0 = time.perf_counter()
+        x = ga.scaled_input(pcm_k, si_k.bits_per_sample)
+        torch.cuda.synchronize()
+        upload_s = time.perf_counter() - t0
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        y = rg.equal_loudness(x, ga.freq_index)
+        ev1.record()
+        torch.cuda.synchronize()
+        kernel_ms = ev0.elapsed_time(ev1)
+        t0 = time.perf_counter()
+        out = y.cpu().numpy()
+        copy_back_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ga.add_windows(out)
+        gain_k = ga.title_gain()
+        host_stats_s = time.perf_counter() - t0
+        n_k = int(x.shape[1])
+        if f"{gain_k:+2.2f}" != f"{album_tags[k][0]:+2.2f}":
+            raise AssertionError(f"title {k}: gain {gain_k} by stage, {album_tags[k][0]} tagged")
+        stages.append({"title": k, "minutes": ALBUM_MINUTES[k], "loudness": ALBUM_LOUDNESS[k],
+                       "samples_per_channel": n_k, "title_gain": gain_k,
+                       "title_peak": ga.title_peak_final, "decode_s": decode_s,
+                       "upload_s": upload_s, "kernel_ms": kernel_ms,
+                       "kernel_ns_per_sample": kernel_ms * 1e6 / n_k,
+                       "latency_bound_ms": n_k * ns_per_sample_bound * 1e-6,
+                       "copy_back_s": copy_back_s, "host_stats_s": host_stats_s})
+        del x, y, out
+    if f"{ga.album_gain():+2.2f}" != f"{album_tags[0][2]:+2.2f}":
+        raise AssertionError(f"album gain {ga.album_gain()} by stage, {album_tags[0][2]} tagged")
+    # the kernel at the main path's shape: the first title, against the
+    # plain version on the same input
+    with open(paths[0], "rb") as f:
+        pcm0 = st.decode_bytes_device(f.read(), check_md5=False)[0]
+    x0 = rg.GainAnalysis(SAMPLE_RATE).scaled_input(pcm0, 16)
+    fi0 = rg.SAMPLE_RATES.index(SAMPLE_RATE)
+    iir_ms = time_ms(lambda: rg.equal_loudness(x0, fi0), iters=3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yp0 = rg_plain(x0, fi0)
+    torch.cuda.synchronize()
+    iir_plain_ms = (time.perf_counter() - t0) * 1e3
+    yk0 = rg.equal_loudness(x0, fi0)
+    title_err = float((yk0 - yp0).abs().max())
+    title_peak = float(yp0.abs().max())
+    if not title_err <= RG_REL_TOL * title_peak:
+        raise AssertionError(f"the kernel against the plain version on title 0: {title_err} "
+                             f"of a {title_peak} peak")
+    n0 = int(x0.shape[1])
+    iir_bytes_ms = 2 * 2 * n0 * 8 / HBM_BYTES_PER_S * 1e3
+    iir_ops_ms = 2 * n0 * RG_FLOPS_PER_SAMPLE / FP64_FLOPS_PER_S * 1e3
+    iir_timing = {"samples_per_channel": n0, "kernel_ms": iir_ms, "plain_ms": iir_plain_ms,
+                  "max_abs_err": title_err, "max_rel_err": title_err / title_peak,
+                  "bytes_ms": iir_bytes_ms, "ops_ms": iir_ops_ms,
+                  "latency_bound_ms": n0 * ns_per_sample_bound * 1e-6}
+    del x0, yp0, yk0, pcm0, titles_pcm, encoded
+    album_dir.cleanup()
+    # metaflac --add-replay-gain on the 30 s 24-bit/96 kHz stream, on the
+    # card by the device rule (FLAC_TPU_DEVICE unset)
+    os.environ.pop("FLAC_TPU_DEVICE", None)
+    with tempfile.TemporaryDirectory() as tmp:
+        hp = os.path.join(tmp, "hires.flac")
+        with open(hp, "wb") as f:
+            f.write(data24)
+        torch.cuda.synchronize()
+        iir.launches = 0
+        t0 = time.perf_counter()
+        cli_rc = metaflac.main(["--add-replay-gain", hp])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = iir.launches
+        hires_tags = check_tags(hp, data24)
+        with open(hp, "rb") as f:
+            if not np.array_equal(st.decode_bytes_device(f.read())[0], pcm24):
+                raise AssertionError("the tagged 24-bit stream does not decode to its input")
+    if cli_rc != 0 or cli_launches != 1:
+        raise AssertionError(f"metaflac --add-replay-gain: rc {cli_rc}, {cli_launches} "
+                             f"kernel launches")
+    emit({"phase": "replaygain", "card": card, "cases": rg_cases,
+          "fp64_latency_ns": lat, "latency_bound_ns_per_sample": ns_per_sample_bound,
+          "album": {"titles": len(paths), "minutes": list(ALBUM_MINUTES),
+                    "loudness": list(ALBUM_LOUDNESS), "make_s": album_make_s,
+                    "encode_s": album_encode_s, "wall_s": album_wall,
+                    "kernel_launches": album_launches, "tags": album_tags,
+                    "album_gain": ga.album_gain(), "stages": stages},
+          "title0": iir_timing,
+          "metaflac_hires": {"rc": cli_rc, "seconds": cli_s, "kernel_launches": cli_launches,
+                             "tags": hires_tags}})
+
+    # --- 16. kernels line ---------------------------------------------------
     def pack_row(name, merged, replaces, main_launches):
         row = pack_rows[merged]
         t512, t64 = row["timing"]["B512"], row["timing"]["B64"]
@@ -1751,7 +2019,20 @@ def main() -> None:
         "ms": ct512["kernel_ms"], "plain_ms": ct512["plain_ms"],
         "bound_ms": ct512["bound_ms"], "bound_by": "bytes",
         "library_ms": ct512["library_ms"],
-        "ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["kernel_ms"]}]})
+        "ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["kernel_ms"]}, {
+        "name": "iir_scan", "route": "cuda", "kernel": "equal_loudness_kernel",
+        "source": "flac_tpu_torch/csrc/iir_scan.cu",
+        "replaces": "flac_tpu/replaygain/__init__.py:73",
+        "launches": album_launches,
+        "equals_fma_reference": all(c["equals_fma_reference"] for c in rg_cases),
+        "max_abs_err": max([c["max_abs_err"] for c in rg_cases] + [title_err]),
+        "max_rel_err": max([c["max_rel_err"] for c in rg_cases]
+                           + [iir_timing["max_rel_err"]]),
+        "ms": iir_ms, "plain_ms": iir_plain_ms,
+        "bound_ms": max(iir_bytes_ms, iir_ops_ms),
+        "bound_by": "bytes" if iir_bytes_ms >= iir_ops_ms else "operations",
+        "latency_bound_ms": iir_timing["latency_bound_ms"],
+        "library_ms": None, "samples_per_channel": n0}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

@@ -55,7 +55,7 @@ class SeekableDecoder:
         if data[:4] == b"OggS":
             raise NotImplementedError(
                 "Ogg FLAC input is not ported to flac_tpu_torch yet "
-                "(ROADMAP queue 1 item 11)")
+                "(ROADMAP queue 1 item 11b)")
         self._host = hd.HostDecoder(data, check_md5=False)
         self.data = self._host.data
         self.streaminfo: StreamInfo = self._host.streaminfo

@@ -1,7 +1,17 @@
-"""FLAC metadata block object model and (de)serialization — the port's copy
-of flac_tpu.metadata.blocks. The level-2 chain/iterator API
-(flac_tpu.metadata.iterators) is not ported yet."""
+"""FLAC metadata engine: block object model, stream I/O, and chain editing —
+the port's copy of flac_tpu.metadata (blocks, and the level 0-2 API of
+iterators: getters, SimpleIterator, MetadataChain). Host-side, pure Python;
+Ogg chains wait for ogg.py (ROADMAP item 11b)."""
 
+from flac_tpu_torch.metadata.iterators import (  # noqa: F401
+    MetadataChain,
+    MetadataIOError,
+    SimpleIterator,
+    get_cuesheet,
+    get_picture,
+    get_streaminfo,
+    get_tags,
+)
 from flac_tpu_torch.metadata.blocks import (  # noqa: F401
     Application,
     CueSheet,

@@ -24,7 +24,9 @@ from flac_tpu_torch.encode import encoder as t_encoder
 from flac_tpu_torch.encode import frame_encoder as t_fe
 from flac_tpu_torch.encode import packer as t_packer
 from flac_tpu_torch.dsp import lpc as t_lpc
-from flac_tpu_torch.kernels import compact_stream, pack_words, residual_scan, restore_scan
+from flac_tpu_torch.kernels import (compact_stream, iir_scan, pack_words, residual_scan,
+                                    restore_scan)
+from flac_tpu_torch import replaygain as t_rg
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -49,7 +51,7 @@ def test_port_imports_no_jax_and_no_flac_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 30  # every module of the slices so far was imported
+    assert n_modules >= 43  # every module of the slices so far was imported
 
 
 @pytest.fixture
@@ -86,6 +88,13 @@ def test_default_device_is_cuda_and_raises_without_gpu(no_cuda, tmp_path):
         t_streaming.ChunkedStreamDecoder(io.BytesIO(b"fLaC"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         t_fe.build_frame_encoder_dense(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        t_rg.GainAnalysis(44100)
+    (tmp_path / "r.flac").write_bytes(b"fLaC")
+    for call in (t_rg.compute_replay_gain, t_rg.add_replay_gain_tags):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call([str(tmp_path / "r.flac")])
+    assert (tmp_path / "r.flac").read_bytes() == b"fLaC"
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -192,3 +201,9 @@ def test_new_launchers_refuse_cpu_tensors():
         restore_scan.restore_scan(res, c, i64, i64, c, i64 == 0, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
         compact_stream.compact_stream(res, i64.to(torch.int32))
+    x = torch.zeros((2, 8), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        iir_scan.equal_loudness(x, t_rg.equalizer_taps(10))
+    before = iir_scan.launches
+    assert torch.equal(t_rg.equal_loudness(x, 10), x)  # the plain version on the CPU
+    assert iir_scan.launches == before
