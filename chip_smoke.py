@@ -164,25 +164,38 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     the LPC subframes of the stream's first 512 frames, and
                     both timed beside the restore's bound for those rows.
 15. replaygain     — the equal-loudness kernel (csrc/iir_scan.cu, both IIR
-                    stages in one launch) against its plain version on the
-                    card, on 0.25 s excerpts at 44.1 kHz (loud, and near
-                    silent), 96 kHz 24-bit and 8 kHz near silent: within
-                    1e-9 of the output's peak, bit for bit equal to
+                    stages, one block a channel, many titles a launch)
+                    against its plain version on the card, on 0.25 s
+                    excerpts at 44.1 kHz (loud, and near silent), 96 kHz
+                    24-bit and 8 kHz near silent: within 1e-9 of the
+                    output's peak, bit for bit equal to
                     replaygain.fma_reference (flac_tpu's order of
                     operations) on the first 300 samples, equal title gains
-                    from both routes; the float64 FMA and add latencies by a
-                    one-thread probe. Then an album of four 44.1 kHz titles
-                    (3, 3.5, 4 and 4.5 min, each at its own loudness)
-                    encoded at level 5 with a PADDING block and tagged by
-                    add_replay_gain_tags: one kernel launch a title, the
-                    five tags in flac_tpu's formats, the title gains rising
-                    as the loudness falls, the audio bytes untouched, each
-                    file decoding on the card to its input (MD5 checked);
-                    the album again by stage (decode, upload, kernel, copy
-                    back, host statistics); the kernel at the first title's
-                    shape against the plain version; and
-                    `metaflac --add-replay-gain` on phase 8's 24-bit/96 kHz
-                    stream, on the card by the device rule.
+                    from both routes. One ragged launch over stereo titles
+                    of 1, 255, 257 and 4097 samples and the 96 kHz excerpt:
+                    each bit-equal to fma_reference on its first samples and
+                    to its own one-title launch. One launch over 150 stereo
+                    titles of 1 to 20,000 samples (300 blocks, more than
+                    the 132 SMs): each bit-equal to its own launch and to
+                    fma_reference on its first samples. The float64 FMA and add
+                    latencies by a one-thread probe. Then an album of four
+                    44.1 kHz titles (3, 3.5, 4 and 4.5 min, each at its own
+                    loudness) encoded at level 5 with a PADDING block and
+                    tagged by add_replay_gain_tags: one kernel launch for
+                    the album, the five tags in flac_tpu's formats, the
+                    title gains rising as the loudness falls, the audio
+                    bytes untouched, each file decoding on the card to its
+                    input (MD5 checked); the album again by stage (decode
+                    and upload a title, equal_loudness_album's one launch
+                    by CUDA events, copy back and host statistics a title),
+                    every title of that launch within 1e-9 of its peak
+                    against the plain version; the first title alone, timed
+                    and bit-equal to its segment of the album's launch;
+                    compute_replay_gain in three launches under a lowered
+                    LAUNCH_BYTES, with the one launch's gains and peaks;
+                    and `metaflac --add-replay-gain` on
+                    phase 8's 24-bit/96 kHz stream, on the card by the
+                    device rule.
 16. the `kernels` line, one entry per ported kernel, with its launches on its
    path, error against the plain version, and times.
 
@@ -227,6 +240,15 @@ ALBUM_MINUTES = (3.0, 3.5, 4.0, 4.5)
 ALBUM_LOUDNESS = (1.0, 0.5, 0.2, 0.05)
 RG_EXCERPT_S = 0.25         # the kernel-against-plain excerpts
 RG_EXACT = 300              # samples a channel held against fma_reference
+# the ragged launch's titles beside a 96 kHz excerpt, samples a channel:
+# one sample, a tile less one, a tile plus one, 16 tiles plus one
+RG_RAGGED = (1, 255, 257, 4097)
+# a launch of more blocks than the H100's 132 SMs: stereo titles of 1 to
+# RG_MANY_MAX samples, each held against its own launch and against
+# fma_reference on its first RG_MANY_EXACT samples
+RG_MANY_TITLES = 150
+RG_MANY_MAX = 20000
+RG_MANY_EXACT = 32
 RG_REL_TOL = 1e-9           # kernel against plain, of the output's peak
 # float64 operations a second on an H100 SXM outside the tensor cores
 # (NVIDIA data sheet: 34 TFLOP/s, an FMA counted as two)
@@ -1753,6 +1775,30 @@ def main() -> None:
         return rg.iir_filter(rg.A_BUTTER[fi], rg.B_BUTTER[fi],
                              rg.iir_filter(rg.A_YULE[fi], rg.B_YULE[fi], x))
 
+    def rg_exact(x, fi, m):
+        """fma_reference's cascade over each channel's first m samples."""
+        xe = x[:, :m].cpu().numpy()
+        return np.stack([rg.fma_reference(rg.A_BUTTER[fi], rg.B_BUTTER[fi], rg.fma_reference(
+            rg.A_YULE[fi], rg.B_YULE[fi], xe[c])) for c in range(xe.shape[0])])
+
+    def ragged_launch(xs, fi, exact_n):
+        """One launch over the titles xs: its launch count, and for each
+        title whether it equals its own one-title launch over its whole
+        length and fma_reference on its first exact_n samples."""
+        iir.launches = 0
+        ys = rg.equal_loudness_album(xs, fi)
+        torch.cuda.synchronize()
+        n_launches, taps = iir.launches, rg.equalizer_taps(fi)
+        rows = []
+        for x, y in zip(xs, ys):
+            m = min(exact_n, int(x.shape[1]))
+            rows.append({"samples_per_channel": int(x.shape[1]),
+                         "equals_one_title_launch": bool(torch.equal(
+                             y, iir.equal_loudness(x, taps))),
+                         "equals_fma_reference": bool(np.array_equal(
+                             y[:, :m].cpu().numpy(), rg_exact(x, fi, m)))})
+        return n_launches, rows
+
     def rg_check(name, sig, rate, bps):
         """The kernel against the plain version on the card, on the scaled
         input GainAnalysis gives them: the error of the whole output, bit
@@ -1769,10 +1815,8 @@ def main() -> None:
             raise AssertionError(f"{name}: {iir.launches} kernel launches for one call")
         peak = float(yp.abs().max())
         abs_err = float((yk - yp).abs().max())
-        xe = x[:, :RG_EXACT].cpu().numpy()
-        exact = np.stack([rg.fma_reference(rg.A_BUTTER[fi], rg.B_BUTTER[fi], rg.fma_reference(
-            rg.A_YULE[fi], rg.B_YULE[fi], xe[c])) for c in range(2)])
-        exact_equal = bool(np.array_equal(yk[:, :RG_EXACT].cpu().numpy(), exact))
+        exact_equal = bool(np.array_equal(yk[:, :RG_EXACT].cpu().numpy(),
+                                          rg_exact(x, fi, RG_EXACT)))
         out_k, out_p = yk.cpu().numpy(), yp.cpu().numpy()
         gk.add_windows(out_k)
         gp.add_windows(out_p)
@@ -1797,6 +1841,31 @@ def main() -> None:
                 rg_check("8000_near_silent", rate_excerpt(8000, 81, 2e-4), 8000, 16)[0],
                 rg_check("44100_near_silent", rate_excerpt(SAMPLE_RATE, 82, 1e-4),
                          SAMPLE_RATE, 16)[0]]
+    # one ragged launch over titles of unequal length (the 96 kHz taps for
+    # all), and one of 2 x RG_MANY_TITLES blocks, so that blocks share SMs
+    ga96 = rg.GainAnalysis(HIRES_RATE)
+    rag_x = [ga96.scaled_input(make_pcm(n, seed=90 + k, rate=HIRES_RATE), 16)
+             for k, n in enumerate(RG_RAGGED)]
+    rag_x.append(ga96.scaled_input(pcm24[: int(HIRES_RATE * RG_EXCERPT_S)], 24))
+    rag_launches, ragged = ragged_launch(rag_x, rg.SAMPLE_RATES.index(HIRES_RATE), RG_EXACT)
+    if rag_launches != 1 or not all(r["equals_one_title_launch"] and r["equals_fma_reference"]
+                                    for r in ragged):
+        raise AssertionError(f"the ragged launch ({rag_launches} launches): {ragged}")
+    many_rng = np.random.default_rng(91)
+    many_x = [torch.from_numpy(many_rng.normal(0, 5000.0, (2, int(n)))).to(dev)
+              for n in many_rng.integers(1, RG_MANY_MAX + 1, size=RG_MANY_TITLES)]
+    many_launches, many_rows = ragged_launch(many_x, rg.SAMPLE_RATES.index(SAMPLE_RATE),
+                                             RG_MANY_EXACT)
+    many = {"titles": RG_MANY_TITLES, "segments": 2 * RG_MANY_TITLES, "launches": many_launches,
+            "samples_per_channel": [r["samples_per_channel"] for r in many_rows],
+            "all_equal_one_title_launch": all(r["equals_one_title_launch"] for r in many_rows),
+            "all_equal_fma_reference": all(r["equals_fma_reference"] for r in many_rows)}
+    bad = [r for r in many_rows
+           if not (r["equals_one_title_launch"] and r["equals_fma_reference"])]
+    if many_launches != 1 or bad:
+        raise AssertionError(f"the launch of {2 * RG_MANY_TITLES} blocks ({many_launches} "
+                             f"launches): {bad}")
+    del rag_x, many_x
     lat = {}
     for op in ("fma", "add"):
         lat[op] = (iir.fp64_latency_probe(1 << 22, op) - iir.fp64_latency_probe(1 << 21, op)
@@ -1829,9 +1898,9 @@ def main() -> None:
     torch.cuda.synchronize()
     album_wall = time.perf_counter() - t0
     album_launches = iir.launches
-    if album_launches != len(paths):
+    if album_launches != 1:
         raise AssertionError(f"the album launched the kernel {album_launches} times for "
-                             f"{len(paths)} titles")
+                             f"{len(paths)} titles, not once")
 
     def check_tags(path_k, before):
         """The five tags in flac_tpu's formats, the audio bytes untouched;
@@ -1868,7 +1937,7 @@ def main() -> None:
                 raise AssertionError(f"{p} does not decode to its input after tagging")
     # the album again, by stage: the same steps as compute_replay_gain
     ga = None
-    stages = []
+    stages, xs = [], []
     for k, p in enumerate(paths):
         with open(p, "rb") as f:
             data_k = f.read()
@@ -1882,12 +1951,28 @@ def main() -> None:
         x = ga.scaled_input(pcm_k, si_k.bits_per_sample)
         torch.cuda.synchronize()
         upload_s = time.perf_counter() - t0
-        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        y = rg.equal_loudness(x, ga.freq_index)
-        ev1.record()
-        torch.cuda.synchronize()
-        kernel_ms = ev0.elapsed_time(ev1)
+        stages.append({"title": k, "minutes": ALBUM_MINUTES[k], "loudness": ALBUM_LOUDNESS[k],
+                       "samples_per_channel": int(x.shape[1]), "title_peak": ga.title_peak,
+                       "decode_s": decode_s, "upload_s": upload_s})
+        ga.title_peak = 0.0
+        xs.append(x)
+    # the album's filter as compute_replay_gain runs it: the layout's copies
+    # and one launch, by CUDA events; each title held against the plain
+    # version on the card
+    if sum(rg.launch_bytes(x) for x in xs) > rg.LAUNCH_BYTES:
+        raise AssertionError("the album does not fit one launch")
+    fi0 = ga.freq_index
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    iir.launches = 0
+    torch.cuda.synchronize()
+    ev0.record()
+    ys = rg.equal_loudness_album(xs, fi0)
+    ev1.record()
+    torch.cuda.synchronize()
+    album_kernel_ms = ev0.elapsed_time(ev1)
+    if iir.launches != 1:
+        raise AssertionError(f"equal_loudness_album launched {iir.launches} times, not once")
+    for k, y in enumerate(ys):
         t0 = time.perf_counter()
         out = y.cpu().numpy()
         copy_back_s = time.perf_counter() - t0
@@ -1895,45 +1980,68 @@ def main() -> None:
         ga.add_windows(out)
         gain_k = ga.title_gain()
         host_stats_s = time.perf_counter() - t0
-        n_k = int(x.shape[1])
         if f"{gain_k:+2.2f}" != f"{album_tags[k][0]:+2.2f}":
             raise AssertionError(f"title {k}: gain {gain_k} by stage, {album_tags[k][0]} tagged")
-        stages.append({"title": k, "minutes": ALBUM_MINUTES[k], "loudness": ALBUM_LOUDNESS[k],
-                       "samples_per_channel": n_k, "title_gain": gain_k,
-                       "title_peak": ga.title_peak_final, "decode_s": decode_s,
-                       "upload_s": upload_s, "kernel_ms": kernel_ms,
-                       "kernel_ns_per_sample": kernel_ms * 1e6 / n_k,
-                       "latency_bound_ms": n_k * ns_per_sample_bound * 1e-6,
-                       "copy_back_s": copy_back_s, "host_stats_s": host_stats_s})
-        del x, y, out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yp = rg_plain(xs[k], fi0)
+        torch.cuda.synchronize()
+        plain_ms_k = (time.perf_counter() - t0) * 1e3
+        peak_k = float(yp.abs().max())
+        err_k = float((y - yp).abs().max())
+        stages[k].update({"title_gain": gain_k, "copy_back_s": copy_back_s,
+                          "host_stats_s": host_stats_s, "plain_ms": plain_ms_k,
+                          "max_abs_err": err_k, "max_rel_err": err_k / peak_k})
+        if not err_k <= RG_REL_TOL * peak_k:
+            raise AssertionError(f"title {k} of the album's launch against the plain version: "
+                                 f"{err_k} of a {peak_k} peak")
+        del out, yp
     if f"{ga.album_gain():+2.2f}" != f"{album_tags[0][2]:+2.2f}":
         raise AssertionError(f"album gain {ga.album_gain()} by stage, {album_tags[0][2]} tagged")
-    # the kernel at the main path's shape: the first title, against the
-    # plain version on the same input
-    with open(paths[0], "rb") as f:
-        pcm0 = st.decode_bytes_device(f.read(), check_md5=False)[0]
-    x0 = rg.GainAnalysis(SAMPLE_RATE).scaled_input(pcm0, 16)
-    fi0 = rg.SAMPLE_RATES.index(SAMPLE_RATE)
+    n_long = max(s_["samples_per_channel"] for s_ in stages)
+    album_kernel = {"kernel_ms": album_kernel_ms,
+                    "longest_samples_per_channel": n_long,
+                    "kernel_ns_per_sample_longest": album_kernel_ms * 1e6 / n_long,
+                    "latency_bound_ms_longest": n_long * ns_per_sample_bound * 1e-6,
+                    "max_abs_err": max(s_["max_abs_err"] for s_ in stages),
+                    "max_rel_err": max(s_["max_rel_err"] for s_ in stages)}
+    # the kernel at the main path's shape: the first title alone, bit-equal
+    # to its segment of the album's launch
+    x0 = xs[0]
     iir_ms = time_ms(lambda: rg.equal_loudness(x0, fi0), iters=3, warmup=1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    yp0 = rg_plain(x0, fi0)
-    torch.cuda.synchronize()
-    iir_plain_ms = (time.perf_counter() - t0) * 1e3
     yk0 = rg.equal_loudness(x0, fi0)
-    title_err = float((yk0 - yp0).abs().max())
-    title_peak = float(yp0.abs().max())
-    if not title_err <= RG_REL_TOL * title_peak:
-        raise AssertionError(f"the kernel against the plain version on title 0: {title_err} "
-                             f"of a {title_peak} peak")
+    if not torch.equal(yk0, ys[0]):
+        raise AssertionError("title 0 alone differs from its segment of the album's launch")
+    iir_plain_ms, title_err = stages[0]["plain_ms"], stages[0]["max_abs_err"]
     n0 = int(x0.shape[1])
     iir_bytes_ms = 2 * 2 * n0 * 8 / HBM_BYTES_PER_S * 1e3
     iir_ops_ms = 2 * n0 * RG_FLOPS_PER_SAMPLE / FP64_FLOPS_PER_S * 1e3
-    iir_timing = {"samples_per_channel": n0, "kernel_ms": iir_ms, "plain_ms": iir_plain_ms,
-                  "max_abs_err": title_err, "max_rel_err": title_err / title_peak,
+    iir_timing = {"samples_per_channel": n0, "kernel_ms": iir_ms,
+                  "kernel_ns_per_sample": iir_ms * 1e6 / n0, "plain_ms": iir_plain_ms,
+                  "max_abs_err": title_err, "max_rel_err": stages[0]["max_rel_err"],
+                  "equals_album_launch": True,
                   "bytes_ms": iir_bytes_ms, "ops_ms": iir_ops_ms,
                   "latency_bound_ms": n0 * ns_per_sample_bound * 1e-6}
-    del x0, yp0, yk0, pcm0, titles_pcm, encoded
+    del xs, ys, x0, yk0
+    # the album again through compute_replay_gain under a lowered
+    # LAUNCH_BYTES: titles 0 and 1 in one launch, 2 and 3 alone, with the
+    # one launch's gains and peaks
+    cap = rg.LAUNCH_BYTES
+    rg.LAUNCH_BYTES = 2 * 2 * 8 * (iir.padded(stages[0]["samples_per_channel"])
+                                   + iir.padded(stages[1]["samples_per_channel"]))
+    try:
+        iir.launches = 0
+        grouped = rg.compute_replay_gain(paths)
+        torch.cuda.synchronize()
+        grouped_launches = iir.launches
+    finally:
+        rg.LAUNCH_BYTES = cap
+    want = (ga.album_gain(), max(s_["title_peak"] for s_ in stages),
+            [(s_["title_gain"], s_["title_peak"]) for s_ in stages])
+    if grouped_launches != 3 or grouped != want:
+        raise AssertionError(f"compute_replay_gain in groups: {grouped_launches} launches, "
+                             f"{grouped} against {want}")
+    del titles_pcm, encoded
     album_dir.cleanup()
     # metaflac --add-replay-gain on the 30 s 24-bit/96 kHz stream, on the
     # card by the device rule (FLAC_TPU_DEVICE unset)
@@ -1957,12 +2065,14 @@ def main() -> None:
         raise AssertionError(f"metaflac --add-replay-gain: rc {cli_rc}, {cli_launches} "
                              f"kernel launches")
     emit({"phase": "replaygain", "card": card, "cases": rg_cases,
+          "ragged": {"launches": rag_launches, "segments": ragged}, "many_blocks": many,
           "fp64_latency_ns": lat, "latency_bound_ns_per_sample": ns_per_sample_bound,
           "album": {"titles": len(paths), "minutes": list(ALBUM_MINUTES),
                     "loudness": list(ALBUM_LOUDNESS), "make_s": album_make_s,
                     "encode_s": album_encode_s, "wall_s": album_wall,
                     "kernel_launches": album_launches, "tags": album_tags,
-                    "album_gain": ga.album_gain(), "stages": stages},
+                    "album_gain": ga.album_gain(), "stages": stages,
+                    "kernel": album_kernel, "grouped_launches": grouped_launches},
           "title0": iir_timing,
           "metaflac_hires": {"rc": cli_rc, "seconds": cli_s, "kernel_launches": cli_launches,
                              "tags": hires_tags}})
@@ -2023,16 +2133,19 @@ def main() -> None:
         "name": "iir_scan", "route": "cuda", "kernel": "equal_loudness_kernel",
         "source": "flac_tpu_torch/csrc/iir_scan.cu",
         "replaces": "flac_tpu/replaygain/__init__.py:73",
-        "launches": album_launches,
-        "equals_fma_reference": all(c["equals_fma_reference"] for c in rg_cases),
-        "max_abs_err": max([c["max_abs_err"] for c in rg_cases] + [title_err]),
+        "launches": album_launches, "launches_metaflac": cli_launches,
+        "equals_fma_reference": all(c["equals_fma_reference"] for c in rg_cases)
+        and all(r["equals_fma_reference"] for r in ragged) and many["all_equal_fma_reference"],
+        "max_abs_err": max([c["max_abs_err"] for c in rg_cases]
+                           + [album_kernel["max_abs_err"]]),
         "max_rel_err": max([c["max_rel_err"] for c in rg_cases]
-                           + [iir_timing["max_rel_err"]]),
+                           + [album_kernel["max_rel_err"]]),
         "ms": iir_ms, "plain_ms": iir_plain_ms,
         "bound_ms": max(iir_bytes_ms, iir_ops_ms),
         "bound_by": "bytes" if iir_bytes_ms >= iir_ops_ms else "operations",
         "latency_bound_ms": iir_timing["latency_bound_ms"],
-        "library_ms": None, "samples_per_channel": n0}]})
+        "library_ms": None, "samples_per_channel": n0,
+        "album_ms": album_kernel_ms}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
 

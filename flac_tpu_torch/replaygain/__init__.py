@@ -9,11 +9,14 @@ replaygain_analysis.c:265,326,347,436-481), src/share/grabbag/replaygain.c
 (gain application with hard 6 dB tanh limiting and dither for the decoder's
 --apply-replaygain option).
 
-The IIR cascade is `equal_loudness`: on a CUDA tensor one launch of the
-hand kernel csrc/iir_scan.cu (both stages fused, one thread a channel), on
-a CPU tensor the plain `iir_filter` twice. The window statistics stay on
-the host in numpy, as in flac_tpu, on the filtered signal copied back once
-a title, so the gain depends only on the filter's output.
+The IIR cascade is `equal_loudness` for one title and
+`equal_loudness_album` for an album: on CUDA tensors one launch of the hand
+kernel csrc/iir_scan.cu (both stages, one thread block a channel) for a
+title or for a whole album (`compute_replay_gain` hands it groups of
+titles under LAUNCH_BYTES), on CPU tensors the plain `iir_filter` twice a
+title. The window statistics stay on the host in numpy, as in flac_tpu, on
+the filtered signal copied back once a title, so the gain depends only on
+the filter's output.
 """
 
 from __future__ import annotations
@@ -158,6 +161,32 @@ def equal_loudness(x: torch.Tensor, freq_index: int) -> torch.Tensor:
     return iir_filter(A_BUTTER[freq_index], B_BUTTER[freq_index], y)
 
 
+# float64 bytes one kernel launch may hold, input and output together;
+# compute_replay_gain filters an album above it in consecutive groups of
+# titles (a 15-minute stereo album at 44.1 kHz holds about 1.27 GB)
+LAUNCH_BYTES = 8 << 30
+
+
+def launch_bytes(x: torch.Tensor) -> int:
+    """The float64 bytes a title x [C, n] takes in a launch, x and y."""
+    c, n = x.shape
+    return 2 * 8 * c * iir_scan.padded(n)
+
+
+def equal_loudness_album(xs: list[torch.Tensor], freq_index: int) -> list[torch.Tensor]:
+    """`equal_loudness` over every title xs[k] [C_k, n_k] float64 of one
+    device, each from zero state; returns the outputs in order. On CUDA
+    tensors one kernel launch for them all, or a raise; on CPU tensors
+    iir_filter twice a title, exactly as `equal_loudness`."""
+    if len({x.device for x in xs}) > 1:
+        raise ValueError("equal_loudness_album: the titles lie on different devices")
+    if not xs or xs[0].device.type != "cuda":
+        return [equal_loudness(x, freq_index) for x in xs]
+    buf, segs = iir_scan.pack_ragged(xs)
+    y = iir_scan.equal_loudness_ragged(buf, segs, equalizer_taps(freq_index))
+    return iir_scan.unpack_ragged(y, [tuple(x.shape) for x in xs])
+
+
 class GainAnalysis:
     """Streaming-equivalent whole-signal analyzer. Matches the reference's
     semantics: equal-loudness filter → 50 ms window mean-square → histogram
@@ -246,12 +275,27 @@ class GainAnalysis:
 def compute_replay_gain(paths: list[str], device: str | torch.device | None = None):
     """Analyze a set of FLAC files as one album, decoding and filtering on
     `device` (None: CUDA). Returns (album_gain, album_peak,
-    [(title_gain, title_peak), ...])."""
+    [(title_gain, title_peak), ...]).
+
+    Each title is decoded, checked for its sample rate and scaled in order;
+    then the titles are filtered together by `equal_loudness_album`, one
+    launch on CUDA (above LAUNCH_BYTES, a group of titles at a time: the
+    pending titles are filtered when the next would not fit), and their
+    window statistics and gains taken in order."""
     from flac_tpu_torch.decode.stream import decode_bytes_device
 
     analysis: GainAnalysis | None = None
-    titles = []
-    album_peak = 0.0
+    titles: list[tuple[float, float]] = []
+    pending: list[tuple[torch.Tensor, float]] = []  # scaled, not yet filtered
+    pending_bytes = 0
+
+    def finish_pending() -> None:
+        ys = equal_loudness_album([x for x, _ in pending], analysis.freq_index)
+        for y, (_, peak) in zip(ys, pending):
+            analysis.add_windows(y.cpu().numpy())
+            titles.append((analysis.title_gain(), peak))
+        pending.clear()
+
     for p in paths:
         with open(p, "rb") as f:
             data = f.read()
@@ -260,10 +304,15 @@ def compute_replay_gain(paths: list[str], device: str | torch.device | None = No
             analysis = GainAnalysis(si.sample_rate, device=device)
         elif si.sample_rate != analysis.sample_rate:
             raise ReplayGainError("album files have differing sample rates")
-        analysis.analyze(pcm, si.bits_per_sample)
-        tg = analysis.title_gain()
-        titles.append((tg, analysis.title_peak_final))
-        album_peak = max(album_peak, analysis.title_peak_final)
+        x = analysis.scaled_input(pcm, si.bits_per_sample)
+        peak, analysis.title_peak = analysis.title_peak, 0.0  # this title's own
+        if pending and pending_bytes + launch_bytes(x) > LAUNCH_BYTES:
+            finish_pending()
+            pending_bytes = 0
+        pending.append((x, peak))
+        pending_bytes += launch_bytes(x)
+    finish_pending()
+    album_peak = max([0.0] + [peak for _, peak in titles])
     return analysis.album_gain(), album_peak, titles
 
 

@@ -9,7 +9,13 @@
 - `fma_reference`, the CUDA kernel's arithmetic step by step in exact
   rationals, equals `_iir_scan` bit for bit (on 400 samples a channel).
 - The gains, peaks and tag strings are equal exactly: the window statistics
-  are flac_tpu's, in numpy, on the filtered signal.
+  are flac_tpu's, in numpy, on the filtered signal. The album is filtered
+  together (`equal_loudness_album`, one kernel launch on CUDA tensors, the
+  plain version a title on CPU tensors); `compute_replay_gain` splits it
+  into groups above LAUNCH_BYTES, with the same results.
+- The kernel's ragged layout (offsets on whole tiles, zero padding, the
+  split back to the titles) round-trips, and its launcher checks its input
+  before it loads the library.
 - Tagging, loading and gain application give byte- and int32-identical
   results.
 """
@@ -186,11 +192,175 @@ def test_load_tags_match(tagged):
     assert t_rg.load_tags(src[1], False) is None and j_rg.load_tags(src[1], False) is None
 
 
-def test_compute_replay_gain_matches(tagged):
-    """The unrounded gains and peaks, on the first title."""
-    src, _, _ = tagged
-    got = t_rg.compute_replay_gain(src[:1], device="cpu")
-    assert got == j_rg.compute_replay_gain(src[:1])
+@pytest.fixture(scope="module")
+def album_ref(tagged):
+    """flac_tpu's compute_replay_gain over the three source titles."""
+    return j_rg.compute_replay_gain(tagged[0])
+
+
+@pytest.fixture(scope="module")
+def decode_once():
+    """The port's decode_bytes_device, each stream decoded once in this
+    module: the plain scan on the CPU takes seconds a title."""
+    from flac_tpu_torch.decode import stream
+
+    decoded, decode = {}, stream.decode_bytes_device
+
+    def decode_cached(data, **kw):
+        key = (data, tuple(sorted(kw.items())))
+        if key not in decoded:
+            decoded[key] = decode(data, **kw)
+        return decoded[key]
+
+    return stream, decode_cached
+
+
+def test_compute_replay_gain_matches(tagged, album_ref, decode_once, monkeypatch):
+    """The unrounded gains and peaks, on all three titles (4000, 3500 and
+    3000 samples), filtered together as the album."""
+    stream, decode_cached = decode_once
+    monkeypatch.setattr(stream, "decode_bytes_device", decode_cached)
+    got = t_rg.compute_replay_gain(tagged[0], device="cpu")
+    assert len(got[2]) == 3
+    assert got == album_ref
+
+
+# the 4000-, 3500- and 3000-sample stereo titles' bytes in a launch
+_TITLE_BYTES = [2 * 8 * 2 * iir_scan.padded(n) for n in (4000, 3500, 3000)]
+
+
+@pytest.mark.parametrize("cap, groups", [
+    (0, [[4000], [3500], [3000]]),                      # every title over the cap
+    (_TITLE_BYTES[0] + _TITLE_BYTES[1], [[4000, 3500], [3000]]),
+    (_TITLE_BYTES[1] + _TITLE_BYTES[2], [[4000], [3500, 3000]]),
+    (None, [[4000, 3500, 3000]]),                       # LAUNCH_BYTES as it is
+], ids=["each_alone", "two_then_one", "one_then_two", "one_launch"])
+def test_compute_replay_gain_in_groups_matches(cap, groups, tagged, album_ref, decode_once,
+                                               monkeypatch):
+    """An album over LAUNCH_BYTES is filtered in consecutive groups of
+    titles, each group filtered when the next title would not fit, with
+    the same results."""
+    calls = []
+    album = t_rg.equal_loudness_album
+
+    def counted(xs, fi):
+        calls.append([int(x.shape[1]) for x in xs])
+        # a group holds one title over the cap, or titles under it
+        assert sum(t_rg.launch_bytes(x) for x in xs) <= max(t_rg.LAUNCH_BYTES,
+                                                            t_rg.launch_bytes(xs[0]))
+        return album(xs, fi)
+
+    stream, decode_cached = decode_once
+    monkeypatch.setattr(stream, "decode_bytes_device", decode_cached)
+    monkeypatch.setattr(t_rg, "equal_loudness_album", counted)
+    if cap is not None:
+        monkeypatch.setattr(t_rg, "LAUNCH_BYTES", cap)
+    assert t_rg.compute_replay_gain(tagged[0], device="cpu") == album_ref
+    assert calls == groups
+
+
+def test_album_helper_equals_per_title_bit_for_bit():
+    """equal_loudness_album on CPU tensors is equal_loudness a title, bit
+    for bit: a title shorter than one 50 ms window, a mono title duplicated
+    to two channels by scaled_input, and titles of several lengths."""
+    rate = 44100
+    fi = t_rg.SAMPLE_RATES.index(rate)
+    ga = t_rg.GainAnalysis(rate, device="cpu")
+    sigs = [_tone(3000, rate, 9000, seed=20), _tone(700, rate, 4000, seed=21),
+            _tone(2500, rate, 12000, ch=1, seed=22)[:, 0], _tone(1, rate, 100, seed=23),
+            _tone(257, rate, 20000, seed=24)]
+    xs = [ga.scaled_input(s, 16) for s in sigs]
+    assert torch.equal(xs[2][0], xs[2][1])  # the mono title on both channels
+    before = iir_scan.launches
+    got = t_rg.equal_loudness_album(xs, fi)
+    assert iir_scan.launches == before
+    assert len(got) == len(xs)
+    for x, y in zip(xs, got):
+        ref = t_rg.equal_loudness(x, fi)
+        assert y.dtype == torch.float64 and y.shape == x.shape
+        assert torch.equal(y, ref)
+    assert t_rg.equal_loudness_album([], fi) == []
+
+
+@pytest.mark.parametrize("lengths", [[1], [31, 255], [256, 257], [3000, 1, 256],
+                                     [1, 31, 255, 256, 257, 3000], [0, 5]])
+def test_ragged_layout_round_trips(lengths):
+    """Offsets on whole tiles, zero padding to whole tiles, segments one
+    after another in title then channel order, and the split back gives
+    every title exactly."""
+    rng = np.random.default_rng(len(lengths))
+    chans = [1 + k % 2 for k in range(len(lengths))]
+    xs = [torch.from_numpy(rng.normal(0, 1000.0, (c, n))) for c, n in zip(chans, lengths)]
+    buf, segs = iir_scan.pack_ragged(xs)
+    layout, total = iir_scan.ragged_layout([(c, n) for c, n in zip(chans, lengths)])
+    np.testing.assert_array_equal(segs, layout)
+    assert buf.dtype == torch.float64 and buf.shape == (total,)
+    assert total == sum(c * iir_scan.padded(n) for c, n in zip(chans, lengths))
+    assert segs.shape == (sum(chans), 2) and (segs[:, 0] % iir_scan.TILE == 0).all()
+    np.testing.assert_array_equal(segs[:, 1], np.repeat(lengths, chans))
+    ends = segs[:, 0] + [iir_scan.padded(n) for n in segs[:, 1]]
+    np.testing.assert_array_equal(segs[1:, 0], ends[:-1])  # no gap, no overlap
+    covered = torch.zeros(total, dtype=torch.bool)
+    for off, n in segs:
+        covered[off:off + n] = True
+    assert not buf[~covered].any()  # the padding is zeros
+    back = iir_scan.unpack_ragged(buf, [tuple(x.shape) for x in xs])
+    for x, y in zip(xs, back):
+        assert y.shape == x.shape and torch.equal(y, x)
+    iir_scan._check_segs(segs, total)  # the launcher takes this layout
+
+
+def _no_load(name):
+    raise AssertionError(f"the launcher loaded {name} before it checked its input")
+
+
+@pytest.mark.parametrize("case", ["cpu", "float32", "2d", "overlap", "misaligned",
+                                  "out_of_range", "negative", "no_segments", "taps"])
+def test_ragged_launcher_validates_before_loading(case, monkeypatch):
+    monkeypatch.setattr(iir_scan._build, "load", _no_load)
+    T = iir_scan.TILE
+    buf = torch.zeros(4 * T, dtype=torch.float64)
+    segs = [(0, T + 1), (2 * T, 5)]
+    taps = t_rg.equalizer_taps(0)
+    match = {"cpu": "CUDA", "float32": "float64", "2d": "1-D", "overlap": "overlap",
+             "misaligned": "multiples", "out_of_range": "leave the buffer",
+             "negative": "negative", "no_segments": "pairs", "taps": "taps"}[case]
+    if case == "float32":
+        buf = buf.float()
+    elif case == "2d":
+        buf = buf.view(4, T)
+    elif case == "overlap":
+        segs = [(0, T + 1), (T, 5)]  # the first segment's second tile is T..2T
+    elif case == "misaligned":
+        segs = [(0, 5), (T + 8, 5)]
+    elif case == "out_of_range":
+        segs = [(0, 5), (3 * T, T + 1)]
+    elif case == "negative":
+        segs = [(0, -1)]
+    elif case == "no_segments":
+        segs = np.zeros((0, 2), np.int64)
+    elif case == "taps":
+        taps = taps[:-1]
+    with pytest.raises(ValueError, match=match):
+        iir_scan.equal_loudness_ragged(buf, segs, taps)
+    with pytest.raises(ValueError, match="CUDA"):
+        iir_scan.equal_loudness(torch.zeros((2, 5), dtype=torch.float64),
+                                t_rg.equalizer_taps(0))
+
+
+@pytest.mark.parametrize("case", ["float32", "1d", "3d"])
+def test_pack_ragged_refuses_other_titles(case, monkeypatch):
+    """The layout takes float64 titles [C, n] only: it would otherwise
+    round or reshape them silently on their way to the kernel."""
+    monkeypatch.setattr(iir_scan._build, "load", _no_load)
+    x = {"float32": torch.zeros((2, 5), dtype=torch.float32),
+         "1d": torch.zeros(5, dtype=torch.float64),
+         "3d": torch.zeros((1, 2, 5), dtype=torch.float64)}[case]
+    good = torch.zeros((2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match=r"float64 \[C, n\]"):
+        iir_scan.pack_ragged([good, x])
+    with pytest.raises(ValueError, match=r"float64 \[C, n\]"):
+        iir_scan.equal_loudness(x, t_rg.equalizer_taps(0))
 
 
 @pytest.mark.parametrize("kw", [
@@ -255,3 +425,64 @@ def test_kernel_matches_plain_on_the_card():
             ga.analyze(sig, 16)
             gains.append(ga.title_gain())
         assert gains[0] == gains[1]
+
+
+@pytest.mark.cuda
+def test_ragged_launch_equals_one_launch_a_title():
+    """One ragged launch over titles of unequal length (run on a GPU machine
+    with `-m cuda`) equals one launch a title bit for bit, and
+    fma_reference on each segment's first 300 samples."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(8)
+    T = iir_scan.TILE
+    for rate in (44100, 96000):
+        fi = t_rg.SAMPLE_RATES.index(rate)
+        taps = t_rg.equalizer_taps(fi)
+        xs = [torch.from_numpy(rng.normal(0, 5000.0, (2, n))).cuda()
+              for n in (1, T - 1, T + 1, 3 * T, rate // 8)]
+        before = iir_scan.launches
+        got = t_rg.equal_loudness_album(xs, fi)
+        assert iir_scan.launches == before + 1
+        for x, y in zip(xs, got):
+            assert torch.equal(y, iir_scan.equal_loudness(x, taps))
+            xc = x[:, :300].cpu().numpy()
+            exact = np.stack([t_rg.fma_reference(
+                t_rg.A_BUTTER[fi], t_rg.B_BUTTER[fi],
+                t_rg.fma_reference(t_rg.A_YULE[fi], t_rg.B_YULE[fi], xc[c])) for c in range(2)])
+            np.testing.assert_array_equal(y[:, :300].cpu().numpy(), exact)
+
+
+@pytest.mark.cuda
+def test_ragged_launch_over_more_blocks_than_sms():
+    """One launch over 150 stereo titles (300 blocks, so blocks share the
+    H100's 132 SMs) equals one launch a title bit for bit (run on a GPU
+    machine with `-m cuda`)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(9)
+    fi = t_rg.SAMPLE_RATES.index(44100)
+    taps = t_rg.equalizer_taps(fi)
+    xs = [torch.from_numpy(rng.normal(0, 5000.0, (2, int(n)))).cuda()
+          for n in rng.integers(1, 20001, size=150)]
+    before = iir_scan.launches
+    got = t_rg.equal_loudness_album(xs, fi)
+    assert iir_scan.launches == before + 1
+    for x, y in zip(xs, got):
+        assert torch.equal(y, iir_scan.equal_loudness(x, taps))
+
+
+@pytest.mark.cuda
+def test_compute_replay_gain_in_groups_on_the_card(tagged, monkeypatch):
+    """Under a lowered LAUNCH_BYTES the album is filtered on the card in
+    three launches (run on a GPU machine with `-m cuda`), with the results
+    of its one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    before = iir_scan.launches
+    one = t_rg.compute_replay_gain(tagged[0], device="cuda")
+    assert iir_scan.launches == before + 1
+    monkeypatch.setattr(t_rg, "LAUNCH_BYTES", 0)
+    before = iir_scan.launches
+    assert t_rg.compute_replay_gain(tagged[0], device="cuda") == one
+    assert iir_scan.launches == before + 3
