@@ -217,9 +217,28 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     which must report each FAILED with rc 1 (a kernel
                     fault would raise); each prints its wall, Msamples/s a
                     channel and launches.
-16. the `kernels` line, printed after phase 17: one entry per ported kernel,
-   with its launches on its path (and in phase 17, `launches_cli`), error
-   against the plain version, and times.
+18. sharded        — the multi-process path (flac_tpu_torch.parallel.sharding)
+                    on this one card: (a) one rank on NCCL in this process,
+                    joined through a file store, runs encode_corpus_sharded
+                    of phase 4's 60 s PCM at 64 frames a step (its SHA-256
+                    must be phase 4's) and decode_corpus_sharded of it (the
+                    input back), with one pack launch a step and one for the
+                    tail frame, two narrow scans and one restore a decode
+                    step; (b) two gloo ranks spawned on the same card, each
+                    regenerating the PCM from its seed, do the same at 32
+                    frames a rank a step, every rank returning phase 4's
+                    bytes and the input, and report their walls, launches
+                    and collectives back; the collective calls and bytes of
+                    one encode step must be the same at 32 and 64 frames a
+                    rank; (c) the five examples/torch programs in process on
+                    phase 15's shortest title as WAV: their WAVs and PCM
+                    equal the input, their .flac files encode_file's
+                    streams. Every number of this phase is one card's,
+                    whose ranks share it: not a scaling figure.
+16. the `kernels` line, printed after phase 18: one entry per ported kernel,
+   with its launches on its path (and in phase 17, `launches_cli`; in phase
+   18, `launches_sharded`, every rank's), error against the plain version,
+   and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
 `same_card.py` compares two versions of the port on one card.
@@ -280,6 +299,15 @@ FP64_FLOPS_PER_S = 34e12
 # flops each) and 6 additions or subtractions (csrc/iir_scan.cu)
 RG_FLOPS_PER_SAMPLE = 26 * 2 + 6
 API_FRAMES = 200            # frames api.Decoder takes from the Ogg pipe in phase 17
+# phase 18: frames a rank a step, for one NCCL rank and for two gloo ranks
+# (64 frames a step either way), and the two sizes of one step whose
+# collectives must be the same
+SHARDED_FPD_NCCL = 64
+SHARDED_FPD_GLOO = SHARDED_FPD_NCCL // 2
+SHARDED_AUDIT_FPD = (32, 64)
+SHARDED_PG_TIMEOUT_S = 120  # each process group's timeout
+SHARDED_DEADLINE_S = 300    # the two gloo ranks' deadline, their start included
+SHARDED_NOTE = "one card: ranks share it; not a scaling figure"
 # the SHA-256 of the streams of phases 4 and 8 as the padded route writes
 # them: the dense route must give the same bytes
 SHA256_60S_16BIT_L5 = "42e870d8dfd0eacf428343ecfac8905ae86f67c8a6dd5b6d83470af0fee9847d"
@@ -641,6 +669,241 @@ def busy_ms(spans) -> float:
             total += end - max(start, reach)
             reach = end
     return total / 1e3
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches in this process since its count was zeroed."""
+    from flac_tpu_torch.kernels import compact_stream as cst
+    from flac_tpu_torch.kernels import iir_scan as iir
+    from flac_tpu_torch.kernels import pack_words as pw
+    from flac_tpu_torch.kernels import residual_scan as rs
+    from flac_tpu_torch.kernels import restore_scan as rr
+    return {"pack_words": pw.launches, "pack_words_multi": pw.pack_words_multi.launches,
+            "compact_stream": cst.launches, "residual_scan": rs.launches,
+            "residual_scan_wide": rs.wide_launches, "restore_scan": rr.launches,
+            "iir_scan": iir.launches}
+
+
+def zero_launch_counts() -> None:
+    from flac_tpu_torch.kernels import compact_stream as cst
+    from flac_tpu_torch.kernels import iir_scan as iir
+    from flac_tpu_torch.kernels import pack_words as pw
+    from flac_tpu_torch.kernels import residual_scan as rs
+    from flac_tpu_torch.kernels import restore_scan as rr
+    pw.launches = pw.pack_words_multi.launches = cst.launches = 0
+    rs.launches = rs.wide_launches = rr.launches = iir.launches = 0
+
+
+def run_sharded(mesh, fpd: int, pcm: np.ndarray) -> dict:
+    """Phase 18 on one rank: encode_corpus_sharded of `pcm` at level 5 and
+    decode_corpus_sharded of the stream, each with its wall, launches and
+    collectives; then one encode step at each of SHARDED_AUDIT_FPD, for the
+    collective calls and bytes of a step."""
+    from flac_tpu_torch.encode.frame_encoder import EncoderConfig
+    from flac_tpu_torch.parallel import sharding
+
+    cfg = EncoderConfig.from_level(5, 2, 16, SAMPLE_RATE)
+    out = {"ranks": mesh.size(), "frames_per_device": fpd}
+    for name in ("encode", "decode"):
+        zero_launch_counts()
+        sharding.collective_calls = sharding.collective_bytes = 0
+        sharding.payload_calls = sharding.payload_bytes = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "encode":
+            stream = sharding.encode_corpus_sharded(pcm, cfg, mesh, frames_per_device=fpd)
+        else:
+            got = sharding.decode_corpus_sharded(stream, mesh, frames_per_device=fpd)
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, "launches": launch_counts(),
+                     "collective_calls": sharding.collective_calls,
+                     "collective_bytes": sharding.collective_bytes,
+                     "payload_calls": sharding.payload_calls,
+                     "payload_bytes": sharding.payload_bytes}
+    out["encode"]["msamples_per_s"] = len(pcm) / out["encode"]["wall_s"] / 1e6
+    out["decode"]["msamples_per_s"] = len(pcm) / out["decode"]["wall_s"] / 1e6
+    out["stream_sha256"] = hashlib.sha256(stream).hexdigest()
+    out["pcm_equal"] = bool(np.array_equal(got, pcm))
+    frames = pcm[: (len(pcm) // BLOCKSIZE) * BLOCKSIZE].reshape(-1, BLOCKSIZE, 2)
+    r = mesh.get_local_rank("host") * mesh.size(1) + mesh.get_local_rank("chip")
+    out["step_collectives"] = {}
+    for fpd_a in SHARDED_AUDIT_FPD:
+        step = sharding.build_sharded_encode_step(cfg, mesh, fpd_a)
+        calls, nbytes = sharding.collective_calls, sharding.collective_bytes
+        step(frames[r * fpd_a:(r + 1) * fpd_a], np.arange(r * fpd_a, (r + 1) * fpd_a))
+        out["step_collectives"][str(fpd_a)] = [sharding.collective_calls - calls,
+                                               sharding.collective_bytes - nbytes]
+    return out
+
+
+def sharded_rank(rank: int, world: int, init_file: str, out_path: str) -> None:
+    """One of phase 18's gloo ranks, spawned; every rank runs on this
+    process's card (cuda:{LOCAL_RANK % device_count}, LOCAL_RANK unset: the
+    first) and regenerates phase 4's PCM from its seed."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from flac_tpu_torch.parallel import sharding
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=SHARDED_PG_TIMEOUT_S))
+    try:
+        out = run_sharded(sharding.make_mesh(), SHARDED_FPD_GLOO,
+                          make_pcm(SAMPLE_RATE * SECONDS))
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def sharded_phase(card: str, pcm: np.ndarray, title: np.ndarray) -> dict:
+    """Phase 18: (a) one NCCL rank in this process, (b) two gloo ranks on
+    this card in spawned processes, (c) the five examples/torch programs in
+    process on `title`. Raises on any failed check."""
+    import multiprocessing
+    from datetime import timedelta
+    import importlib.util
+    import types
+
+    import torch.distributed as dist
+
+    from flac_tpu_torch.containers import AudioBuffer, parse_wav, write_wav
+    from flac_tpu_torch.encode.encoder import encode_file
+    from flac_tpu_torch.metadata import Padding, VorbisComment
+    from flac_tpu_torch.parallel import sharding
+
+    # both runs take SHARDED_FPD_NCCL frames a step (two ranks of SHARDED_FPD_GLOO)
+    steps = -(-(len(pcm) // BLOCKSIZE) // SHARDED_FPD_NCCL)
+
+    def check(run: dict, who: str) -> None:
+        enc, dec = run["encode"]["launches"], run["decode"]["launches"]
+        want_enc = {"pack_words": steps + 1, "residual_scan": 0, "restore_scan": 0}
+        want_dec = {"pack_words": 0, "residual_scan": 2 * steps, "restore_scan": steps,
+                    "residual_scan_wide": 0}
+        if any(enc[k] != v for k, v in want_enc.items()) \
+                or any(dec[k] != v for k, v in want_dec.items()):
+            raise AssertionError(f"{who}: launches {enc} / {dec}, expected {want_enc} / "
+                                 f"{want_dec}")
+        if run["stream_sha256"] != SHA256_60S_16BIT_L5 or not run["pcm_equal"]:
+            raise AssertionError(f"{who}: stream {run['stream_sha256']}, PCM equal "
+                                 f"{run['pcm_equal']}")
+        counts = {tuple(v) for v in run["step_collectives"].values()}
+        if len(counts) != 1:
+            raise AssertionError(f"{who}: a step's collectives grow with frames_per_device: "
+                                 f"{run['step_collectives']}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    # (a) one rank on NCCL, joined through a file store
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp.name}/nccl_store", rank=0,
+                            world_size=1, timeout=timedelta(seconds=SHARDED_PG_TIMEOUT_S),
+                            device_id=dev)
+    try:
+        nccl = run_sharded(sharding.make_mesh(), SHARDED_FPD_NCCL, pcm)
+    finally:
+        dist.destroy_process_group()
+    check(nccl, "one NCCL rank")
+
+    # (b) two gloo ranks sharing the card; the kernels were built in phase 1
+    ctx = multiprocessing.get_context("spawn")
+    outs = [os.path.join(tmp.name, f"rank{r}.json") for r in range(2)]
+    procs = [ctx.Process(target=sharded_rank, args=(r, 2, f"{tmp.name}/gloo_store", outs[r]))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(SHARDED_DEADLINE_S - (time.perf_counter() - t0), 1))
+    finally:
+        late = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    gloo_wall = time.perf_counter() - t0
+    if late or any(p.exitcode for p in procs):
+        raise AssertionError(f"gloo ranks: past the {SHARDED_DEADLINE_S} s deadline {late}, "
+                             f"exit codes {[p.exitcode for p in procs]}")
+    gloo = []
+    for r, path in enumerate(outs):
+        with open(path) as f:
+            gloo.append(json.load(f))
+        check(gloo[-1], f"gloo rank {r}")
+
+    # (c) the examples, in process on the card (FLAC_TPU_DEVICE is unset)
+    here = os.path.dirname(os.path.abspath(__file__))
+    wav = os.path.join(tmp.name, "title.wav")
+    write_wav(wav, AudioBuffer(samples=title, sample_rate=SAMPLE_RATE, bits_per_sample=16))
+    examples = {}
+
+    def example(name: str, argv: list[str], stdin=None) -> bytes:
+        spec = importlib.util.spec_from_file_location(
+            f"torch_example_{name}", os.path.join(here, "examples", "torch", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        raw = io.BytesIO()
+        text = io.StringIO()
+        saved = sys.argv, sys.stdin, sys.stdout
+        sys.argv = [name, *argv]
+        sys.stdout = types.SimpleNamespace(buffer=raw, write=text.write, flush=text.flush)
+        if stdin is not None:
+            sys.stdin = types.SimpleNamespace(buffer=stdin)
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        try:
+            rc = mod.main()
+        finally:
+            torch.cuda.synchronize()
+            sys.argv, sys.stdin, sys.stdout = saved
+        examples[name] = {"rc": rc, "wall_s": time.perf_counter() - t0_,
+                          "launches": launch_counts(), "stdout_tail": text.getvalue()[-300:]}
+        if rc != 0:
+            raise AssertionError(f"{name}: rc {rc}: {text.getvalue()[-500:]}")
+        return raw.getvalue()
+
+    def read(path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
+    def same_as_encode_file(path: str, metadata: list) -> None:
+        ref = os.path.join(tmp.name, "ref.flac")
+        encode_file(title, SAMPLE_RATE, 16, ref, level=5, verify=True, metadata=metadata)
+        if read(path) != read(ref):
+            raise AssertionError(f"{os.path.basename(path)} differs from encode_file's stream")
+
+    flac_path = os.path.join(tmp.name, "title.flac")
+    example("encode_example", [wav, flac_path])
+    same_as_encode_file(flac_path, [VorbisComment(vendor_string="", comments=[
+        "ARTIST=example", "TITLE=example"]), Padding(length=1024)])
+    for name in ("decode_example", "stream_decode_example"):
+        out_wav = os.path.join(tmp.name, f"{name}.wav")
+        example(name, [flac_path, out_wav])
+        if not np.array_equal(parse_wav(read(out_wav)).samples, title):
+            raise AssertionError(f"{name}: the WAV differs from the input")
+    with open(flac_path, "rb") as f:
+        raw = example("pipe_decode_example", [], stdin=f)
+    if not np.array_equal(np.frombuffer(raw, "<i4").reshape(-1, 2), title):
+        raise AssertionError("pipe_decode_example: the PCM differs from the input")
+    oo_path = os.path.join(tmp.name, "oo.flac")
+    example("oo_api_example", [wav, oo_path])
+    same_as_encode_file(oo_path, [VorbisComment(vendor_string="", comments=[
+        "TITLE=oo example"])])
+    for name, ex in examples.items():
+        need = ("pack_words", "compact_stream") if name in ("encode_example", "oo_api_example") \
+            else ("residual_scan", "restore_scan")
+        if not all(ex["launches"][k] > 0 for k in need) or ex["launches"]["residual_scan_wide"]:
+            raise AssertionError(f"{name} launched {ex['launches']}")
+    tmp.cleanup()
+    return {"phase": "sharded", "card": card, "note": SHARDED_NOTE,
+            "wall_s": time.perf_counter() - t_phase, "steps": steps, "nccl_one_rank": nccl, "gloo_two_ranks": gloo,
+            "gloo_wall_s": gloo_wall, "examples": examples,
+            "title_samples": len(title), "streams_equal_phase4": True,
+            "decodes_equal_input": True, "examples_equal_encode_file": True}
 
 
 def main() -> None:
@@ -2143,8 +2406,7 @@ def main() -> None:
         """One in-process `flac` call on the card: its rc (which must be
         `want_rc`), wall, rate, the end of its stderr and the launches of
         each kernel it made."""
-        pw.launches = pw.pack_words_multi.launches = cst.launches = 0
-        rs.launches = rs.wide_launches = rr.launches = iir.launches = 0
+        zero_launch_counts()
         err_ = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2158,11 +2420,7 @@ def main() -> None:
             "argv": [os.path.basename(a) for a in argv], "rc": rc_,
             "wall_s": wall_, "samples_per_channel": samples,
             "msamples_per_s": samples / wall_ / 1e6, "stderr_tail": err_.getvalue()[-400:],
-            "launches": {"pack_words": pw.launches,
-                         "pack_words_multi": pw.pack_words_multi.launches,
-                         "compact_stream": cst.launches,
-                         "residual_scan": rs.launches, "residual_scan_wide": rs.wide_launches,
-                         "restore_scan": rr.launches, "iir_scan": iir.launches}}
+            "launches": launch_counts()}
         if rc_ != want_rc:
             raise AssertionError(f"flac {' '.join(argv)}: rc {rc_}, {want_rc} expected")
         return cli_steps[name]["launches"]
@@ -2280,9 +2538,20 @@ def main() -> None:
           "frames_equal_encode_file": True, "tags_equal_phase15": True,
           "decodes_equal_input": True, "ogg_frames_equal_native": True,
           "damaged_copies_failed": failed, "oga_seek": oga_seek, "api_ogg_pipe": api_pipe})
+    short_title = titles_pcm[int(np.argmin(titles_n))]  # phase 18's examples
     del titles_pcm, encoded, tl, got, native, oga_data, flac_longest
     cli_dir.cleanup()
     album_dir.cleanup()
+
+    # --- 18. sharded: the multi-process path, and the examples ------------------
+    sharded = sharded_phase(card, pcm, short_title)
+    emit(sharded)
+    sharded_launches = {k: sharded["nccl_one_rank"]["encode"]["launches"][k]
+                        + sharded["nccl_one_rank"]["decode"]["launches"][k]
+                        + sum(r_["encode"]["launches"][k] + r_["decode"]["launches"][k]
+                              for r_ in sharded["gloo_two_ranks"])
+                        for k in ("pack_words", "residual_scan", "restore_scan")}
+    del short_title
 
     # --- 16. kernels line ---------------------------------------------------
     def pack_row(name, merged, replaces, main_launches):
@@ -2292,6 +2561,7 @@ def main() -> None:
                 "source": "flac_tpu_torch/csrc/pack_words.cu", "replaces": replaces,
                 "launches": main_launches,
                 "launches_cli": flac_launches["pack_words_multi" if merged else "pack_words"],
+                **({} if merged else {"launches_sharded": sharded_launches["pack_words"]}),
                 "bit_exact": all(c["max_abs_err"] == 0 for c in row["cases"]),
                 "max_abs_err": max(c["max_abs_err"] for c in row["cases"]),
                 "ms": t512["kernel_ms"], "plain_ms": t512["plain_ms"],
@@ -2308,6 +2578,7 @@ def main() -> None:
         "source": "flac_tpu_torch/csrc/residual_scan.cu",
         "replaces": "flac_tpu/decode/frame_decoder.py:409-456, :291",
         "launches": decode_launches[0], "launches_cli": flac_launches["residual_scan"],
+        "launches_sharded": sharded_launches["residual_scan"],
         "bit_exact": True,
         "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in dcases),
         "ms": scan_ms, "plain_ms": scan_plain_ms, "bound_ms": scan_bound_ms,
@@ -2318,6 +2589,7 @@ def main() -> None:
         "launches": decode_launches[1] + lpc_launches,
         "launches_decode": decode_launches[1], "launches_lpc_restore": lpc_launches,
         "launches_cli": flac_launches["restore_scan"],
+        "launches_sharded": sharded_launches["restore_scan"],
         "bit_exact": True,
         "max_abs_err": max([c.get("restore_scan_max_abs_err", 0) for c in dcases + wcases]
                            + [lpc_err]),

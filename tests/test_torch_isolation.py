@@ -54,7 +54,28 @@ def test_port_imports_no_jax_and_no_flac_tpu():
                        env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 56  # every module of the slices so far was imported
+    assert n_modules >= 58  # every module of the slices so far was imported
+
+
+_IMPORT_SCRIPTS = """
+import importlib.util, pathlib, sys
+paths = sorted(pathlib.Path("examples/torch").glob("*.py")) + [pathlib.Path("bench_torch.py")]
+for p in paths:  # their imports only: main() runs under the __main__ check
+    spec = importlib.util.spec_from_file_location("script_" + p.stem, p)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "flac_tpu") or m.startswith(("jax.", "flac_tpu.")))
+print(len(paths), bad)
+assert not bad, bad
+"""
+
+
+def test_examples_and_bench_import_no_jax_and_no_flac_tpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPTS], cwd=str(REPO),
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[0]) == 6  # the five examples and bench_torch.py
 
 
 def test_no_gate_naming_a_roadmap_item_is_left():
