@@ -126,15 +126,22 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     counted.
 11. kernels_wide   — holds the wide scan kernel against wide_residual_scan's
                     composition bit for bit on every output (every parse
-                    field, int64 res, end positions, overflow flags): the
-                    first 512 frames of phase 4's stream read wide, every
+                    field, int64 res, end positions, overflow flags), with
+                    the count of frames each launch sent to its exact path:
+                    the first 512 frames of phase 4's stream read wide, every
                     frame of phase 10's 32-bit stream, the guard strings
                     (the fold strings, which the wide scan has no guard for;
                     a unary run of 60 zeros; VERBATIM 32-bit samples that
-                    outrun the refill) and phase 6's 512 random starts; the
-                    restore's int64-res instantiation on the same rows. Times
-                    the kernel and the plain version at B=512, T=4096, with
-                    the bound.
+                    outrun the refill), phase 6's 512 random starts, and one
+                    B=512 launch that mixes the 16-bit frames with the guard
+                    strings and wasted-run starts (both paths in one
+                    launch); the restore's int64-res instantiation on the
+                    same rows. Times the kernel, its exact path over all 512
+                    frames and the narrow kernel on the same frames in
+                    turns (CUDA-graph replay), the kernel on the 32-bit
+                    stream and the plain version at B=512, T=4096, with the
+                    bytes bound and the walk's latency floor (T dependent
+                    walk steps, one step's latency by a one-thread probe).
 12. kernels_compact — holds the compaction kernel against compact_stream_words,
                     bit for bit on every word and the total, on the four
                     cases of tests/test_dense_path.py::TestCompaction
@@ -541,6 +548,35 @@ def random_subframes(n: int = 512, nwords: int = 1 << 14, seed: int = 3):
         bits[s + 8 + run] = 1
     words = np.packbits(bits).view(">u4").astype(np.uint32).view(np.int32)
     return words, starts.astype(np.int64), rng.integers(16, 18, n).astype(np.int64)
+
+
+def mixed_wide_case(words16, pos16, cbps16, guards, rwords, rstarts, rcbps):
+    """One batch of len(pos16) subframes that mixes three kinds, so that the
+    wide scan's fast path and exact path share a launch: every 8th frame
+    from the 3rd a guard string (cycling through `guards`), every 8th from
+    the 6th one of random_subframes' starts with a wasted-bits header (its
+    first quarter), the others the 16-bit stream's subframes at pos16. The
+    parts' words are laid end to end. Returns (words int32, pos int64, cbps
+    int64, kind [B] of "stream", "guard", "random")."""
+    parts, at = [words16], len(words16)
+    guard_at = {}
+    for name, w in guards.items():
+        guard_at[name] = at
+        parts.append(w)
+        at += len(w)
+    names = list(guards)
+    pos, cbps = pos16.astype(np.int64).copy(), cbps16.astype(np.int64).copy()
+    kind = np.full(len(pos), "stream", dtype=object)
+    n_forced = len(rstarts) // 4
+    for i in range(len(pos)):
+        if i % 8 == 3:
+            name = names[(i // 8) % len(names)]
+            pos[i], cbps[i], kind[i] = guard_at[name] * 32, 32 if "32" in name else 16, "guard"
+        elif i % 8 == 6:
+            j = (i // 8) % n_forced
+            pos[i], cbps[i], kind[i] = at * 32 + int(rstarts[j]), int(rcbps[j]), "random"
+    parts.append(rwords)
+    return np.concatenate(parts).astype(np.int32), pos, cbps, kind
 
 
 def compaction_cases():
@@ -1799,17 +1835,23 @@ def main() -> None:
     # --- 11. kernels_wide: the wide scan kernel against its plain version ------
     wcases = []
 
-    def wide_check(name, words_t, pos_t, cbps_t, T, timed=False):
+    def wide_check(name, words_t, pos_t, cbps_t, T):
         """The wide kernel against wide_residual_scan's composition on every
-        output; returns the kernel's outputs and the plain call's seconds."""
+        output, with the frames it sent to its exact path; returns the
+        kernel's outputs and the plain call's seconds."""
+        rs.exact_path_frames()
         got = rs.subframe_scan(words_t, pos_t, cbps_t, T, DECODE_MAXORD, wide=True)
-        torch.cuda.synchronize()
+        exact_frames = rs.exact_path_frames()
         t_a = time.perf_counter()
         ref = fd.subframe_scan(words_t, pos_t, cbps_t, T, DECODE_MAXORD, wide=True)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t_a
+        n_ovf = int(got[3].sum())
+        if exact_frames < n_ovf:
+            raise AssertionError(f"{name}: {n_ovf} flagged frames but {exact_frames} "
+                                 "on the exact path")
         wcases.append({"case": name, "subframe_scan_max_abs_err": scan_err(got, ref),
-                       "overflow_frames": int(got[3].sum())})
+                       "overflow_frames": n_ovf, "exact_path_frames": exact_frames})
         return got, plain_s
 
     # the first 512 frames of phase 4's 16-bit stream, read wide
@@ -1837,10 +1879,12 @@ def main() -> None:
                                 sample_rate=SAMPLE_RATE, max_lpc_order=DECODE_MAXORD)
     pos, assignment, _ = fd.read_frame_header(
         words32, torch.as_tensor(offsets32 * 8, device=dev), geom32.header_ext_bits, 2)
-    rows32 = []
+    rows32, timing32 = [], []
     for c in range(2):
+        cbps32 = fd.side_channel_bps(assignment, c, 32, 2)
         got, _ = wide_check(f"stream32_{len(offsets32)}x{BLOCKSIZE}_channel{c}", words32,
-                            pos, fd.side_channel_bps(assignment, c, 32, 2), BLOCKSIZE)
+                            pos, cbps32, BLOCKSIZE)
+        timing32.append((pos, cbps32, got[2]))
         rows32.append((got[1], *fd.restore_inputs(got[0], DECODE_MAXORD)))
         pos = got[2]
     rargs32 = (*stack_rows(rows32), BLOCKSIZE, DECODE_MAXORD)
@@ -1861,8 +1905,8 @@ def main() -> None:
                             torch.zeros(1, dtype=torch.int64, device=dev),
                             torch.full((1,), wbits, dtype=torch.int64, device=dev), T_g)
         want_ovf = name in ("unary_60", "verbatim32_overspend")
-        if bool(got[3][0]) != want_ovf:
-            raise AssertionError(f"the wide scan's overflow flag is wrong on {name}")
+        if bool(got[3][0]) != want_ovf or wcases[-1]["exact_path_frames"] != want_ovf:
+            raise AssertionError(f"the wide scan's overflow flag or path is wrong on {name}")
         wcases[-1]["ovf"] = want_ovf
     # 512 random starts in random words with zero runs (phase 6's generator)
     got, _ = wide_check(f"random_{len(rstarts)}x{BLOCKSIZE}", *rargs_rnd[:3], BLOCKSIZE)
@@ -1871,26 +1915,60 @@ def main() -> None:
     torch.cuda.synchronize()
     wcases[-1]["restore_scan_max_abs_err"] = err(xk, xp)
     del got, rnd, xk, xp
+    # one B=512 launch that mixes the 16-bit stream's frames with the guard
+    # strings and phase 6's wasted-run starts: both paths in one launch
+    wpos0, wcbps0, wide_end0, wide_plain_s = wide_timing[0]
+    mixed = mixed_wide_case(words.cpu().numpy(), wpos0.cpu().numpy(), wcbps0.cpu().numpy(),
+                            guard_strings, rw, rstarts, rcbps)
+    got, _ = wide_check(f"mixed_{DECODE_B}x{BLOCKSIZE}",
+                        *(torch.as_tensor(x, device=dev) for x in mixed[:3]), BLOCKSIZE)
+    wcases[-1]["frames"] = {k: int((mixed[3] == k).sum()) for k in ("stream", "guard", "random")}
+    if not 0 < wcases[-1]["exact_path_frames"] < DECODE_B:
+        raise AssertionError(f"the mixed launch did not share both paths: {wcases[-1]}")
+    del got, mixed
     for cse in wcases:
         if any(v for k, v in cse.items() if k.endswith("max_abs_err")):
             raise AssertionError(f"the wide scan or the restore disagrees on {cse}")
-    # time: the kernel on channel 0 of the 512 real frames; the plain
-    # version's time is its checking call above
-    wpos0, wcbps0, wide_end0, wide_plain_s = wide_timing[0]
-    wide_ms = time_ms(lambda: rs.subframe_scan(words, wpos0, wcbps0, BLOCKSIZE,
-                                               DECODE_MAXORD, wide=True))
+    # times, on channel 0 of the 512 real frames: the kernel, its exact path
+    # for every frame and the narrow kernel, in turns, by CUDA-graph replay
+    # (the kernel is shorter than the launcher's host work late in this
+    # process); the plain version's time is its checking call above
+    turns = {"wide": [], "exact_path": [], "narrow": []}
+    for _ in range(2):
+        turns["wide"].append(graph_ms(lambda: rs.subframe_scan(
+            words, wpos0, wcbps0, BLOCKSIZE, DECODE_MAXORD, wide=True)))
+        turns["exact_path"].append(graph_ms(lambda: rs.subframe_scan(
+            words, wpos0, wcbps0, BLOCKSIZE, DECODE_MAXORD, wide=True, exact=True), iters=5))
+        turns["narrow"].append(graph_ms(lambda: rs.subframe_scan(
+            words, wpos0, wcbps0, BLOCKSIZE, DECODE_MAXORD)))
+    wide_ms = turns["wide"][0]
     wide_plain_ms = wide_plain_s * 1e3
-    # the bytes the function must move: the subframes' bits read once, res
-    # (int64 in the wide scan) written once, the per-frame inputs and outputs
-    wsub_bytes = int(((wide_end0 - wpos0).sum() + 7) // 8)
-    wide_bytes = (wsub_bytes + DECODE_B * BLOCKSIZE * 8
-                  + DECODE_B * (16 + 9 * 8 + 5 + 2 * DECODE_MAXORD * 8 + 9))
+    pos32_0, cbps32_0, end32_0 = timing32[0]
+    wide32_ms = graph_ms(lambda: rs.subframe_scan(words32, pos32_0, cbps32_0, BLOCKSIZE,
+                                                  DECODE_MAXORD, wide=True))
+
+    def wide_bytes_of(pos_a, end_a):
+        """The bytes the function must move: the subframes' bits read once,
+        res (int64) written once, the per-frame inputs and outputs."""
+        n = pos_a.shape[0]
+        return (int(((end_a - pos_a).sum() + 7) // 8) + n * BLOCKSIZE * 8
+                + n * (16 + 9 * 8 + 5 + 2 * DECODE_MAXORD * 8 + 9))
+    wide_bytes = wide_bytes_of(wpos0, wide_end0)
     wide_bound_ms = wide_bytes / HBM_BYTES_PER_S * 1e3
+    wide32_bound_ms = wide_bytes_of(pos32_0, end32_0) / HBM_BYTES_PER_S * 1e3
+    # the walk's floor: each frame walks its T samples one after another (all
+    # 512 frames at once, a block each), one dependent walk step a sample
+    walk_ns = (rs.walk_latency_probe(1 << 22) - rs.walk_latency_probe(1 << 21)
+               ) / (1 << 21) * 1e6
+    wide_latency_bound_ms = BLOCKSIZE * walk_ns * 1e-6
     emit({"phase": "kernels_wide", "card": card, "cases": wcases,
           "timing_shape": {"B": DECODE_B, "T": BLOCKSIZE, "maxord": DECODE_MAXORD},
           "wide_scan": {"kernel_ms": wide_ms, "plain_ms": wide_plain_ms,
                         "bound_ms": wide_bound_ms, "bytes": wide_bytes,
-                        "subframe_bytes": wsub_bytes}})
+                        "latency_bound_ms": wide_latency_bound_ms,
+                        "walk_step_ns": walk_ns, "turns_ms": turns,
+                        "stream32": {"frames": int(pos32_0.shape[0]), "kernel_ms": wide32_ms,
+                                     "bound_ms": wide32_bound_ms}}})
 
     # --- 12. kernels_compact: the compaction kernel against its plain version --
     ccases = []
@@ -2603,7 +2681,10 @@ def main() -> None:
         "bit_exact": True,
         "max_abs_err": max(c.get("subframe_scan_max_abs_err", 0) for c in wcases),
         "ms": wide_ms, "plain_ms": wide_plain_ms, "bound_ms": wide_bound_ms,
-        "bound_by": "bytes", "library_ms": None}, {
+        "bound_by": "bytes", "library_ms": None,
+        "latency_bound_ms": wide_latency_bound_ms,
+        "exact_path_ms": turns["exact_path"][0], "narrow_ms_same_frames": turns["narrow"][0],
+        "ms_32bit": wide32_ms}, {
         "name": "compact_stream", "route": "cuda", "kernel": "compact_stream_kernel",
         "source": "flac_tpu_torch/csrc/compact_stream.cu",
         "replaces": "flac_tpu/encode/packer.py:181",

@@ -1,11 +1,11 @@
 // Subframe scan of the FLAC frame decoder, on NVIDIA Hopper (sm_90a): the
-// subframe-header parse and the residual/verbatim window scan, one subframe
-// of every frame of a batch, in one launch. Two instantiations share the
-// parse and differ in the scan, as flac_tpu's two scans do:
-//   - narrow (subframe_scan_kernel<false>): a window of 8 uint32 limbs, for
-//     streams of at most 26 bits;
-//   - wide (subframe_scan_kernel<true>): a window of 4 uint64 limbs, for
-//     wider streams and scan_impl="wide".
+// subframe-header parse and the residual/verbatim scan, one subframe of every
+// frame of a batch, in one launch. Two kernels share the parse
+// (parse_subframe) and differ in the scan, as flac_tpu's two scans do:
+//   - narrow (subframe_scan_kernel): a window of 8 uint32 limbs, for streams
+//     of at most 26 bits, one frame a thread;
+//   - wide (wide_scan_kernel): int64 values, for wider streams and
+//     scan_impl="wide", one frame a block of two warps.
 //
 // Replaces three pieces of flac_tpu/decode/frame_decoder.py:
 //   - _decode_subframe's parse (:409-456): the header byte, the wasted-bits
@@ -16,31 +16,28 @@
 //     and verbatim samples;
 //   - the wide branch of _decode_subframe (:484-595, the lax.scan at :590):
 //     the same fields, each read by one take(n) of n <= 63 bits that slides
-//     the window.
-// The batch axis becomes threads, one a frame. Every output equals
-// flac_tpu's, the flagged frames' included, because `ovf` decides which
-// frames go to the host decoder:
+//     a 256-bit window of four 64-bit limbs.
+// Every output equals flac_tpu's, the flagged frames' included, because `ovf`
+// decides which frames go to the host decoder:
 //   - the parse reads as flac_tpu's _read_bits does: a read of n <= 0 bits
 //     gives 0 and still moves the position by n, so a wasted run longer
 //     than the sample width makes `ebps`, and then the position, negative;
 //     word indices follow flac_tpu's words[min(i, n - 1)] (word_index);
-//   - each scan keeps flac_tpu's step structure: U=4 samples a step from a
-//     256-bit window in registers, up to 3 word refills at the end of each
-//     step, and its guards. Narrow: one window slide per sample, int32 and
-//     uint32 arithmetic, guards on a unary run of >= 48 zeros, a Rice fold
-//     q * 2^k >= 2^30 and a step that spends more bits than its window
-//     held. Wide: int64 values (verbatim samples of up to 33 bits and folds
-//     up to 47 * 2^30 come out whole, so its res is int64), guards on a
-//     unary run of >= 48 zeros and on over-spending, once a step.
+//   - flac_tpu's scans read U=4 samples a step from their window and refill
+//     it with up to 3 words at the end of each step. The narrow scan keeps
+//     that step structure and its guards (a unary run of >= 48 zeros, a
+//     Rice fold q * 2^k >= 2^30, a step that spends more bits than its
+//     window held). The wide scan's guards are the first and the last.
 // Every shift amount stays in [0, 31] on 32-bit values and in [0, 63] on
 // 64-bit ones: flac_tpu's masked branches rely on a shift by 64 giving 0,
 // which C++ leaves undefined. The funnel shifts are __funnelshift_l and the
 // unary runs __clz / __clzll.
 //
 // Bound: bytes in principle (the subframes' bits read once, res written
-// once: 0.0033 ms for 512 frames of 4096 samples on an H100, narrow), but
-// each thread is one serial chain of T/4 dependent steps, so the chain's
-// length sets the time. The design shortens the chain:
+// once), but a frame's samples are a serial chain: each sample's first bit
+// is known only once the one before it has been read.
+//
+// The narrow scan is one chain of T/4 dependent steps a thread:
 //   - the window stays in registers: every limb update is a select, never
 //     a conditional store to one limb, which the compiler would turn into a
 //     store at a computed index and so move the whole window to local
@@ -49,17 +46,53 @@
 //     words and every lane runs exactly ceil(T/4) steps, so each lane
 //     stages its next words into its own ring in shared memory with
 //     cp.async, a chunk of 8 steps (24 words) ahead, double-buffered; the
-//     step's words are read from shared memory;
+//     step's words are read from shared memory and inserted at once, as
+//     one 96-bit value;
 //   - the partition boundary test keeps t mod ps as a counter instead of
 //     dividing once a sample;
-//   - the 4 samples of a step leave as one 16-byte store (narrow) or two
-//     (wide) when T is a multiple of 4.
-// The narrow scan inserts a step's refills at once as a 96-bit value; the
-// wide scan, a first kernel, inserts its words one by one as flac_tpu's
-// refill loop does (its part0 / part1 placement).
-// The header parse (a few dozen dependent reads a subframe) reads device
-// memory directly: it is short beside the scan, and it replaces about a
-// thousand eager launches and a host synchronisation a channel.
+//   - the 4 samples of a step leave as one 16-byte store.
+//
+// The wide scan reads the stream directly, never through a window, and
+// keeps only the chain on one thread. Its fast path, chunk by chunk of 64
+// samples:
+//   - warp 1 stages the subframe's words into a ring in shared memory, 32
+//     coalesced words a round with cp.async, and builds from them a table
+//     of the zero run that starts at every bit (a byte a bit, counted over
+//     up to three words), two chunks of the worst case ahead of the walk (a
+//     sample spends at most 83 bits on this path);
+//   - phase A: lane 0 of warp 0 walks the chunk. A Rice sample's next start
+//     is s + z + 1 + k with z = table[s], so a step is a mask, one shared
+//     byte load, an add and a select; a partition's parameter is read once
+//     where partitions hold whole steps. It writes each sample's first bit
+//     and its partition's code;
+//   - phase B: warp 1 extracts the chunk's values (Rice fold and zigzag,
+//     escaped raw bits, verbatim bits) while warp 0 walks the next chunk,
+//     and stores the int64 res row coalesced. Named barriers hand the
+//     chunks over; the entries are double-buffered.
+// The walker replays flac_tpu's window bookkeeping on each step's spent bits
+// (navail = 256 - (pos & 31); each step: flag if spent > navail,
+// navail = max(navail - spent, 0), then up to 3 times navail += 32 while
+// navail <= 224), and phase B flags a Rice unary run of >= 48 zeros. That
+// is exact: flac_tpu's window holds the stream's bits [pos, pos + navail)
+// and zeros after them, and the refill puts word wpos, the stream's next, at
+// navail. While no step has spent more than navail bits, every take read
+// stream bits, and a unary run seen in the window (zeros past navail
+// included) equals the stream's whenever it ends inside the step's bits. So
+// a frame the replay does not flag reads the same bits as the window, and
+// its res, end position and flag equal flac_tpu's. Conversely, the first
+// step where the direct reads flag also flags the window: a run of >= 48
+// zeros in the stream is >= 48 zeros in the window, and a take that crosses
+// navail has the same width in both, so the window's step overspends too.
+// The exact path serves the other frames: those the fast path flags, those
+// whose parse ends at a negative position, VERBATIM frames whose width is
+// outside [1, 33] (a negative width moves the position back, which the
+// window does not follow) and blocks longer than 65536 samples. One thread
+// of the frame's block runs flac_tpu's wide branch step for step (scan_wide:
+// the 4-limb window, 6 takes a sample, the refill loop's part0 / part1
+// placement), in the same launch. The header parse (a few dozen dependent
+// reads a subframe) reads device memory directly: it is short beside the
+// scan, and it replaces about a thousand eager launches and a host
+// synchronisation a channel.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,7 +102,7 @@ namespace {
 constexpr int kU = 4;           // samples per step
 constexpr int kNload = 3;       // word refills per step
 constexpr int kLimbs = 8;       // 32-bit limbs of the window
-constexpr int kWarp = 32;       // threads a block: one warp, one frame a lane
+constexpr int kWarp = 32;       // a warp; the narrow kernel's block, one frame a lane
 constexpr int kChunkSteps = 8;  // steps between two stagings
 constexpr int kChunkWords = kNload * kChunkSteps;
 constexpr int kRing = 64;       // staged words a lane (a power of two)
@@ -323,8 +356,8 @@ __device__ __forceinline__ uint64_t take(uint64_t (&l)[4], int64_t n) {
 }
 
 // the wide branch of flac_tpu's _decode_subframe (:484-595) for one frame,
-// from the first residual bit `pos`; the lane's staging ring is
-// `ring + lane`, as in scan_narrow
+// from the first residual bit `pos`, step for step: the wide kernel's exact
+// path; the lane's staging ring is `ring + lane`, as in scan_narrow
 __device__ __forceinline__ void scan_wide(
     const uint32_t* __restrict__ words, int64_t nw, uint32_t* ring, int lane,
     int64_t pos, bool is_coded, bool is_verb, int64_t ebps, int64_t order,
@@ -448,20 +481,17 @@ __device__ __forceinline__ void scan_wide(
   ovf_out[b] = ovf ? 1 : 0;
 }
 
-// Res: int32_t (narrow) or int64_t (wide)
-template <bool kWide, typename Res>
-__global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
-    const uint32_t* __restrict__ words, int64_t nw,
-    const int64_t* __restrict__ pos_in, const int64_t* __restrict__ cbps_in,
-    SubOut out, Res* __restrict__ res, int64_t* __restrict__ pos_out,
-    uint8_t* __restrict__ ovf_out, int32_t B, int32_t T, int32_t maxord) {
-  __shared__ uint32_t ring[kRing * kWarp];  // slot s of lane l at s * 32 + l
-  const int lane = threadIdx.x;
-  const int32_t b = blockIdx.x * kWarp + lane;
-  if (b >= B) return;
+// the fields of read_subframe_header that the scans read
+struct SubHdr {
+  int64_t pos, ebps, order, ps;
+  bool is_coded, is_verb, rice2;
+};
 
-  // ---- the subframe header (flac_tpu's _decode_subframe, :411-456) -------
-  int64_t pos = pos_in[b];
+// flac_tpu's _decode_subframe parse (:411-456) of the subframe at bit `pos`
+// of frame b; writes its fields to `out` when `write`
+__device__ __forceinline__ SubHdr parse_subframe(
+    const uint32_t* __restrict__ words, int64_t nw, int64_t pos, int64_t cbps,
+    int32_t T, int32_t maxord, const SubOut& out, int32_t b, bool write) {
   const int64_t hdr = read_bits(words, nw, pos, 8);
   const int64_t stype = (hdr >> 1) & 0x3F;
   int64_t wasted = 0;
@@ -483,7 +513,7 @@ __global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
     }
     wasted = q + 1;
   }
-  const int64_t ebps = cbps_in[b] - wasted;
+  const int64_t ebps = cbps - wasted;
   const bool is_const = stype == 0;
   const bool is_verb = stype == 1;
   const bool is_fixed = (stype >> 3) == 1;
@@ -495,7 +525,8 @@ __global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
   int64_t* warm = out.warm + (int64_t)b * maxord;
   for (int32_t j = 0; j < maxord; ++j) {
     const int64_t nb = (is_coded && j < order) ? ebps : 0;
-    warm[j] = sign_extend(read_bits(words, nw, pos, nb), nb);
+    const int64_t v = sign_extend(read_bits(words, nw, pos, nb), nb);
+    if (write) warm[j] = v;
   }
   const int64_t prec = is_lpc ? read_bits(words, nw, pos, 4) + 1 : 0;
   const int64_t nshift = is_lpc ? 5 : 0;
@@ -503,32 +534,360 @@ __global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
   int64_t* qlp = out.qlp + (int64_t)b * maxord;
   for (int32_t j = 0; j < maxord; ++j) {
     const int64_t nb = (is_lpc && j < order) ? prec : 0;
-    qlp[j] = sign_extend(read_bits(words, nw, pos, nb), nb);
+    const int64_t v = sign_extend(read_bits(words, nw, pos, nb), nb);
+    if (write) qlp[j] = v;
   }
   const int64_t ev = read_bits(words, nw, pos, is_coded ? 6 : 0);
   const bool rice2 = ((ev >> 4) & 3) == 1;
   const int64_t ps64 = is_coded ? ((int64_t)T >> (ev & 15)) : T;
-  out.pos[b] = pos;
-  out.is_const[b] = is_const;
-  out.is_verb[b] = is_verb;
-  out.is_fixed[b] = is_fixed;
-  out.is_lpc[b] = is_lpc;
-  out.is_coded[b] = is_coded;
-  out.order[b] = order;
-  out.wasted[b] = wasted;
-  out.ebps[b] = ebps;
-  out.cval[b] = cval;
-  out.shift[b] = shift;
-  out.plen[b] = rice2 ? 5 : 4;
-  out.pesc[b] = rice2 ? 31 : 15;
-  out.ps[b] = ps64;
+  if (write) {
+    out.pos[b] = pos;
+    out.is_const[b] = is_const;
+    out.is_verb[b] = is_verb;
+    out.is_fixed[b] = is_fixed;
+    out.is_lpc[b] = is_lpc;
+    out.is_coded[b] = is_coded;
+    out.order[b] = order;
+    out.wasted[b] = wasted;
+    out.ebps[b] = ebps;
+    out.cval[b] = cval;
+    out.shift[b] = shift;
+    out.plen[b] = rice2 ? 5 : 4;
+    out.pesc[b] = rice2 ? 31 : 15;
+    out.ps[b] = ps64;
+  }
+  return SubHdr{pos, ebps, order, ps64, is_coded, is_verb, rice2};
+}
 
-  if constexpr (kWide)
-    scan_wide(words, nw, ring, lane, pos, is_coded, is_verb, ebps, order, rice2,
-              ps64, T, res, b, pos_out, ovf_out);
-  else
-    scan_narrow(words, nw, ring, lane, pos, is_coded, is_verb, ebps, order, rice2,
-                ps64, T, res, b, pos_out, ovf_out);
+__global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
+    const uint32_t* __restrict__ words, int64_t nw,
+    const int64_t* __restrict__ pos_in, const int64_t* __restrict__ cbps_in,
+    SubOut out, int32_t* __restrict__ res, int64_t* __restrict__ pos_out,
+    uint8_t* __restrict__ ovf_out, int32_t B, int32_t T, int32_t maxord) {
+  __shared__ uint32_t ring[kRing * kWarp];  // slot s of lane l at s * 32 + l
+  const int lane = threadIdx.x;
+  const int32_t b = blockIdx.x * kWarp + lane;
+  if (b >= B) return;
+  const SubHdr h = parse_subframe(words, nw, pos_in[b], cbps_in[b], T, maxord, out, b, true);
+  scan_narrow(words, nw, ring, lane, h.pos, h.is_coded, h.is_verb, h.ebps, h.order,
+              h.rice2, h.ps, T, res, b, pos_out, ovf_out);
+}
+
+// ---- the wide scan: one frame a block of two warps -------------------------
+constexpr int kChunk = 64;          // samples a chunk: walked, then extracted
+constexpr int kMaxSampleBits = 83;  // a fast-path sample: 5 + 48 + 30 bits
+// words a chunk may read from its first sample's word on: its samples, the
+// 64-bit peek past the last one and the start's bit offset
+constexpr int kNeed = (kChunk * kMaxSampleBits + 64 + 31) / 32 + 4;
+// the run table is built kAhead words past the walker's chunk start, so
+// that the next chunk's words are built while this one is walked; the ring
+// is staged kLead words past it (a build round reads two words past its
+// last, and rounds take 32 words)
+constexpr int kAhead = 2 * kNeed;
+constexpr int kLead = kAhead + 2 * 32;
+constexpr int kWRing = 1024;        // staged words (a power of two)
+constexpr int kZBits = 1 << 15;     // run-table entries (one a bit, a power of two)
+constexpr int kMaxFastT = 1 << 16;  // value positions fit 26 bits
+constexpr int kWarpWords = kRing * kWarp;  // the block's shared words: scan_wide's ring
+constexpr int kRecAt = kWRing + 4;  // rec[2][kChunk]'s first word: 16-byte aligned
+constexpr int kThreads = 2 * kWarp;  // warp 0 walks, warp 1 stages, builds, extracts
+// while warp 1 extracts chunk c it stages and builds for chunk c + 1's
+// start, at most kNeed words past chunk c's
+static_assert(kNeed + kLead + kWarp <= kWRing, "the ring holds chunk c's words and the staged ones");
+static_assert((kNeed + kAhead + kWarp) * 32 <= kZBits, "the table holds chunk c's runs and the built ones");
+static_assert(kRecAt + 2 * kChunk <= kWarpWords, "the ring, its mirror and rec fit the block's words");
+static_assert(kChunk % kU == 0, "a chunk holds whole steps");
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kBarReady = 1;   // named barriers: warp 1 has built chunk c's runs
+constexpr int kBarWalked = 2;  // warp 0 has walked chunk c
+
+// frames that took the exact path since the count was last read
+__device__ unsigned long long exact_frames = 0;
+
+// the 64 bits at relative bit p of the staged ring, MSB-aligned (the ring's
+// first two words are mirrored past its end, so i + 2 needs no wrap)
+__device__ __forceinline__ uint64_t ring_peek64(const uint32_t* ring, int32_t p) {
+  const int32_t i = (p >> 5) & (kWRing - 1);
+  const int r = p & 31;
+  const uint32_t hi = funnel(ring[i], ring[i + 1], r);
+  const uint32_t lo = funnel(ring[i + 1], ring[i + 2], r);
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// the n (1..32) bits at relative bit p of the staged ring
+__device__ __forceinline__ int32_t ring_bits(const uint32_t* ring, int32_t p, int n) {
+  const int32_t i = (p >> 5) & (kWRing - 1);
+  return (int32_t)(funnel(ring[i], ring[i + 1], p & 31) >> (32 - n));
+}
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+__global__ void __launch_bounds__(kThreads) wide_scan_kernel(
+    const uint32_t* __restrict__ words, int64_t nw,
+    const int64_t* __restrict__ pos_in, const int64_t* __restrict__ cbps_in,
+    SubOut out, int64_t* __restrict__ res, int64_t* __restrict__ pos_out,
+    uint8_t* __restrict__ ovf_out, int32_t B, int32_t T, int32_t maxord,
+    bool exact_only) {
+  // one frame a block: the ring and the table sit at fixed shared
+  // addresses, so a walk step's load needs no base added
+  __shared__ __align__(16) uint32_t region[kWarpWords];
+  __shared__ __align__(16) uint8_t zt[kZBits];  // the run table, by bit mod kZBits
+  __shared__ int32_t walked_to;  // warp 0's position after its last chunk
+  __shared__ int walk_ovf, extract_ovf, stop;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const bool walker = threadIdx.x < kWarp;
+  const int32_t b = blockIdx.x;
+
+  // every thread parses (the same reads, broadcast); thread 0 writes the fields
+  const SubHdr h = parse_subframe(words, nw, pos_in[b], cbps_in[b], T, maxord, out, b,
+                                  threadIdx.x == 0);
+  const int64_t pos0 = h.pos;
+  bool exact = exact_only || pos0 < 0 || T > kMaxFastT ||
+               (h.is_verb && (h.ebps < 1 || h.ebps > 33));
+
+  if (!exact) {
+    uint32_t* ring = region;  // kWRing + 2 words
+    const int32_t plen = h.rice2 ? 5 : 4;
+    const int32_t pesc = h.rice2 ? 31 : 15;
+    const int32_t ps = h.ps == 0 ? 1 : (int32_t)h.ps;  // t mod 0 is 0, as in flac_tpu
+    const int32_t order = h.order > T ? T : (int32_t)h.order;
+    const int32_t ebps = (int32_t)h.ebps;
+    const bool is_coded = h.is_coded, is_verb = h.is_verb;
+    const int32_t r0 = (int32_t)(pos0 & 31);  // relative bit of the first sample
+    if (threadIdx.x == 0) walk_ovf = extract_ovf = stop = 0;
+    __syncthreads();
+
+    if (walker) {
+      // ---- warp 0, lane 0: phase A, each sample's first bit ---------------
+      int32_t r = r0;                // relative bit position
+      int32_t navail = 256 - r0;     // flac_tpu's window bookkeeping
+      int32_t tmod = 0, k = 0, k1 = 1, rawlen = 0;  // k1 = k + 1
+      bool esc = false;
+      uint32_t code = 0;  // rec's low bits: 32 | rawlen if escaped, else k
+      int ovf = 0;
+      // one step of flac_tpu's window bookkeeping on the bits it spent
+      auto replay = [&](int32_t spent) {
+        ovf |= spent > navail;
+        navail = max(navail - spent, 0);
+        navail += 32 * (navail > 256 - 32 ? 0 : min(kNload, ((256 - 32 - navail) >> 5) + 1));
+      };
+      // a partition boundary: the parameter, and an escaped partition's width
+      auto boundary = [&]() {
+        k = ring_bits(ring, r, plen);
+        r += plen;
+        esc = k == pesc;
+        k1 = k + 1;
+        if (esc) {
+          rawlen = ring_bits(ring, r, 5);
+          r += 5;
+        }
+        code = esc ? 32u | (uint32_t)rawlen : (uint32_t)k;
+      };
+      // one sample of a coded subframe (`live`: it holds a value): returns
+      // its rec entry (its first bit and the partition's code) and moves r
+      // to the next start. The run comes from the table, so the chain is
+      // r -> mask -> one shared byte load -> add -> select; phase B reads
+      // the run again for the value and the flag.
+      auto walk_sample = [&](bool live) {
+        const uint32_t e = ((uint32_t)r << 6) | code;
+        const int32_t z = zt[r & (kZBits - 1)];
+        const int32_t other = live ? r + rawlen : r;  // escaped, or no value
+        r = live && !esc ? r + k1 + z : other;  // the run, its stop bit, k LSBs
+        return e;
+      };
+      // partitions of whole steps, in whole chunks
+      const bool whole_steps = ps % kU == 0 && T % kU == 0;
+      for (int32_t c0 = 0; c0 < T; c0 += kChunk) {
+        bar_sync(kBarReady);  // this chunk's words are staged and their runs built
+        if (stop) break;
+        const int32_t cend = min(c0 + kChunk, T);
+        uint32_t* rec = region + kRecAt + ((c0 / kChunk) & 1) * kChunk;
+        // A flagged step does not end the walk: it goes on over garbage (every
+        // read stays inside the ring and the table) until warp 1 stops it,
+        // and the frame takes the exact path.
+        if (lane == 0) {
+          if (is_coded && whole_steps) {
+            // partitions of whole steps: the parameter is read once a
+            // partition, and the samples between run without a branch
+            int32_t r_step = r;  // the step's first bit, before its parameter
+            for (int32_t s0 = c0; s0 < cend;) {
+              if (tmod == 0) boundary();
+              const int32_t send = min(cend, s0 + ps - tmod);
+              tmod = tmod + (send - s0) == ps ? 0 : tmod + (send - s0);
+              for (; s0 < send; s0 += kU) {
+                uint32_t e[kU];
+#pragma unroll
+                for (int32_t j = 0; j < kU; ++j) e[j] = walk_sample(s0 + j >= order);
+                // the step's entries leave in one store (s0 - c0 is a
+                // multiple of 4)
+                *reinterpret_cast<uint4*>(rec + (s0 - c0)) = make_uint4(e[0], e[1], e[2], e[3]);
+                replay(r - r_step);
+                r_step = r;
+              }
+            }
+          } else if (is_coded) {  // any partition size, any T
+            for (int32_t s0 = c0; s0 < cend; s0 += kU) {
+              const int32_t r_step = r;
+#pragma unroll
+              for (int32_t j = 0; j < kU; ++j) {
+                const int32_t t = s0 + j;
+                if (tmod == 0 && t < cend) boundary();
+                tmod = tmod + 1 == ps ? 0 : tmod + 1;
+                rec[t - c0] = walk_sample(t >= order && t < cend);
+              }
+              replay(r - r_step);
+            }
+          } else {  // VERBATIM (ebps bits a sample) or nothing to read
+            for (int32_t s0 = c0; s0 < cend; s0 += kU) {
+              const int32_t spent = is_verb ? ebps * min(kU, cend - s0) : 0;
+              replay(spent);
+              r += spent;
+            }
+          }
+          walked_to = r;
+          walk_ovf = ovf;
+        }
+        __syncwarp();
+        bar_arrive(kBarWalked);
+      }
+    } else {
+      // ---- warp 1: staging, the run table and phase B --------------------
+      const int64_t wb0 = pos0 >> 5;  // relative word 0
+      int32_t staged = 0, built = 0;  // relative words
+      // relative words [staged, end) go to the ring, 32 a round, one a lane,
+      // and are waited for
+      auto stage_to = [&](int32_t end) {
+        for (; staged < end; staged += kWarp) {
+          const int32_t w = staged + lane;
+          const uint32_t* src = words + word_index(wb0 + w, nw);
+          const int slot = w & (kWRing - 1);
+          cp_async4(ring + slot, src);
+          if (slot < 2) cp_async4(ring + kWRing + slot, src);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncwarp();
+      };
+      // the run table: for every bit of relative words [built, end), the
+      // zero run that starts there, counted over up to 3 words (so a run of
+      // 48 or more shows as one); a word a lane, its 32 entries in two stores
+      auto build_runs = [&](int32_t end) {
+        for (; built < end; built += kWarp) {
+          const int32_t w = built + lane;
+          const int32_t i = w & (kWRing - 1);
+          const uint32_t x = ring[i], y = ring[i + 1], u = ring[i + 2];
+          const int32_t zy = y != 0u ? __clz(y) : 32 + __clz(u);
+          uint32_t packed[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            uint32_t word = 0;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int bit = 4 * q + j;
+              const uint32_t v = x << bit;
+              const uint32_t z = v != 0u ? (uint32_t)__clz(v) : (uint32_t)(32 - bit + zy);
+              word |= z << (8 * j);
+            }
+            packed[q] = word;
+          }
+          uint4* dst = reinterpret_cast<uint4*>(zt + ((w * 32) & (kZBits - 1)));
+          dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+        }
+      };
+      int64_t* row = res + (int64_t)b * T;
+      int ovf = 0;
+      stage_to(kLead);
+      build_runs(kAhead);
+      bar_arrive(kBarReady);  // chunk 0 (and chunk 1) are built
+      for (int32_t c0 = 0; c0 < T; c0 += kChunk) {
+        bar_sync(kBarWalked);  // warp 0 has walked chunk c0
+        const int32_t r1 = walked_to;
+        const int32_t cend = min(c0 + kChunk, T);
+        if (cend < T) {
+          // the next chunk's words were built a round ago: let warp 0 go,
+          // or stop it if this frame is flagged
+          const bool flagged = __any_sync(kFull, ovf) || walk_ovf;
+          if (flagged && lane == 0) stop = 1;
+          __syncwarp();
+          bar_arrive(kBarReady);
+          if (flagged) break;
+          stage_to((r1 >> 5) + kLead);
+          build_runs((r1 >> 5) + kAhead);
+        }
+        // ---- phase B: chunk c0's values, 32 samples a round (the rounds
+        // are independent, so they overlap) ------------------------------
+        const uint32_t* rec = region + kRecAt + ((c0 / kChunk) & 1) * kChunk;
+#pragma unroll
+        for (int32_t q = 0; q < kChunk / kWarp; ++q) {
+          const int32_t t = c0 + q * kWarp + lane;
+          if (t >= cend) break;
+          int64_t v = 0;
+          if (is_coded && t >= order) {
+            const uint32_t e = rec[t - c0];
+            const int32_t n = (int32_t)(e & 31);
+            int32_t p = (int32_t)(e >> 6);
+            int32_t z = 0;
+            if (!(e & 32u)) {  // Rice: the unary run, then the LSBs
+              z = zt[p & (kZBits - 1)];
+              ovf |= z >= 48;
+              p += z + 1;
+            }
+            const uint64_t top = n > 0 ? ring_peek64(ring, p) >> (64 - n) : 0;
+            if (e & 32u) {
+              v = sign_extend((int64_t)top, n);
+            } else {
+              const int64_t folded = ((int64_t)z << n) | (int64_t)top;
+              v = (folded >> 1) ^ -(folded & 1);
+            }
+          } else if (is_verb) {
+            const int32_t p = r0 + t * ebps;
+            v = sign_extend((int64_t)(ring_peek64(ring, p) >> (64 - ebps)), ebps);
+          }
+          row[t] = v;
+        }
+      }
+      ovf = __any_sync(kFull, ovf);
+      if (lane == 0) extract_ovf = ovf;
+    }
+    __syncthreads();
+    if (walk_ovf || extract_ovf || stop) {
+      exact = true;
+    } else if (threadIdx.x == 0) {
+      pos_out[b] = pos0 + (walked_to - r0);
+      ovf_out[b] = 0;
+    }
+  }
+  if (exact && threadIdx.x == 0) {
+    atomicAdd(&exact_frames, 1ull);
+    scan_wide(words, nw, region, 0, pos0, h.is_coded, h.is_verb, h.ebps, h.order,
+              h.rice2, h.ps, T, res, b, pos_out, ovf_out);
+  }
+}
+
+// one thread, `iters` dependent walk steps over a run table of runs 0 to 3
+// (a Rice parameter of 8): walk_sample's chain (the table index, one shared
+// byte load, the add and the select) with nothing else; out[0] keeps the
+// chain alive
+__global__ void walk_latency_kernel(int64_t iters, int32_t* out) {
+  __shared__ uint8_t zt[kZBits];
+  for (int i = threadIdx.x; i < kZBits; i += blockDim.x) zt[i] = (uint8_t)(i & 3);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int32_t r = 0;
+  const int32_t k1 = 9;
+  const bool rice = iters > 0;
+  for (int64_t n = 0; n < iters; ++n) {
+    const int32_t z = zt[r & (kZBits - 1)];
+    r = rice ? r + k1 + z : r + 1;
+  }
+  out[0] = r;
 }
 
 }  // namespace
@@ -538,9 +897,10 @@ __global__ void __launch_bounds__(kWarp) subframe_scan_kernel(
 // read_subframe_header's fields (`sub`: pos, is_const, is_verb, is_fixed,
 // is_lpc, is_coded as bool [B]; order, wasted, ebps, cval, shift, plen,
 // pesc, ps as int64 [B]; warm, qlp as int64 [B, maxord]), res [B, T] (int32
-// for the narrow scan, int64 for the wide one, `wide` != 0), pos_out int64
-// [B] (after the samples) and ovf bool [B]. Launches on `stream`; returns
-// cudaGetLastError().
+// for the narrow scan, int64 for the wide one), pos_out int64 [B] (after
+// the samples) and ovf bool [B]. `wide`: 0 the narrow scan, 1 the wide one,
+// 2 the wide one with every frame on its exact path. Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int flac_subframe_scan(
     const void* words, int64_t nwords, const void* pos, const void* cbps,
     void* sub_pos, void* is_const, void* is_verb, void* is_fixed, void* is_lpc,
@@ -555,15 +915,33 @@ extern "C" int flac_subframe_scan(
                (int64_t*)cval,     (int64_t*)warm,    (int64_t*)shift,
                (int64_t*)qlp,      (int64_t*)plen,    (int64_t*)pesc,
                (int64_t*)ps};
-    const int blocks = (batch + kWarp - 1) / kWarp;
-    if (wide)
-      subframe_scan_kernel<true><<<blocks, kWarp, 0, (cudaStream_t)stream>>>(
+    if (wide) {
+      wide_scan_kernel<<<batch, kThreads, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)words, nwords, (const int64_t*)pos, (const int64_t*)cbps,
-          out, (int64_t*)res, (int64_t*)pos_out, (uint8_t*)ovf, batch, T, maxord);
-    else
-      subframe_scan_kernel<false><<<blocks, kWarp, 0, (cudaStream_t)stream>>>(
+          out, (int64_t*)res, (int64_t*)pos_out, (uint8_t*)ovf, batch, T, maxord,
+          wide == 2);
+    } else {
+      const int blocks = (batch + kWarp - 1) / kWarp;
+      subframe_scan_kernel<<<blocks, kWarp, 0, (cudaStream_t)stream>>>(
           (const uint32_t*)words, nwords, (const int64_t*)pos, (const int64_t*)cbps,
           out, (int32_t*)res, (int64_t*)pos_out, (uint8_t*)ovf, batch, T, maxord);
+    }
   }
+  return (int)cudaGetLastError();
+}
+
+// The number of frames the wide scan sent to its exact path since the last
+// call, into *count; resets it. Synchronous. Returns the CUDA error.
+extern "C" int flac_subframe_scan_exact_frames(unsigned long long* count) {
+  const unsigned long long zero = 0;
+  cudaError_t e = cudaMemcpyFromSymbol(count, exact_frames, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(exact_frames, &zero, sizeof(zero));
+  return (int)e;
+}
+
+// The walk's latency probe: one thread runs `iters` dependent walk steps;
+// the caller times two lengths with CUDA events.
+extern "C" int flac_walk_latency_probe(int64_t iters, int32_t* out, void* stream) {
+  walk_latency_kernel<<<1, kWarp, 0, (cudaStream_t)stream>>>(iters, out);
   return (int)cudaGetLastError();
 }

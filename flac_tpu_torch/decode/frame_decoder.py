@@ -15,9 +15,9 @@ is two hand-written CUDA kernels on a GPU:
   port of `_restore_scan`, one launch over every channel's rows.
 
 The scan has two forms, as in flac_tpu (`_use_narrow_scan`): the narrow one
-(8 int32 limbs) for streams of at most 26 bits, and the wide one (4 int64
-limbs, `_decode_subframe`'s wide branch) for wider streams or on request;
-both are instantiations of the same kernel.
+(8 int32 limbs) for streams of at most 26 bits, and the wide one (int64
+values, `_decode_subframe`'s wide branch) for wider streams or on request;
+both are kernels of the same source, sharing the parse.
 
 Each has a plain PyTorch version here (`subframe_scan`, the composition of
 `read_subframe_header` and `narrow_residual_scan` or `wide_residual_scan`;
@@ -621,7 +621,7 @@ def subframe_scan(words, pos, cbps, T: int, maxord: int, wide: bool = False):
 
 def subframe_scan_kernel(words, pos, cbps, T: int, maxord: int, wide: bool = False):
     """subframe_scan done by the hand-written CUDA kernel
-    (kernels.residual_scan, its narrow or wide instantiation), which parses
+    (kernels.residual_scan, its narrow or wide kernel), which parses
     the subframe header and scans the samples in one launch — the
     counterpart of flac_tpu's `_decode_subframe` with
     `_narrow_residual_scan` or its wide branch. CUDA tensors launch the
