@@ -145,13 +145,20 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
 12. kernels_compact — holds the compaction kernel against compact_stream_words,
                     bit for bit on every word and the total, on the four
                     cases of tests/test_dense_path.py::TestCompaction
-                    (regenerated from seed 123) and the packed words of a
-                    level-5 B=64 batch, a 24-bit -8 B=64 batch and a level-5
-                    B=512 batch; times the kernel (CUDA-graph replay), the
-                    plain version and one torch.masked_select of the byte
-                    rows (the library yardstick, which the port never calls;
-                    CUDA events, since it synchronises) on the three real
-                    batches, with the bytes bound.
+                    (regenerated from seed 123), the edge cases of its
+                    output-driven grid (compaction_edge_cases, the silent
+                    frames encoded here) and the packed words of
+                    a level-5 B=64 batch, a 24-bit -8 B=64 batch and a
+                    level-5 B=512 batch; times the kernel (CUDA-graph
+                    replay), the plain version and one torch.masked_select
+                    of the byte rows (the library yardstick, which the port
+                    never calls; CUDA events, since it synchronises) on the
+                    three real batches, with the bytes bound; the launch
+                    floor (the source's empty kernel on the B=64 grid, with
+                    and without programmatic dependent launch) and the
+                    compaction's cost after pack() at B=64 (a graph of pack
+                    then compaction, less one of pack alone; the empty
+                    kernel after pack() the same way).
 13. decode_variable — a variable-blocksize stream made from the 60 s PCM
                     (segments encoded at 4096, 2304 and 1152 by encode_file,
                     plus three frames of 1000, each frame re-headered as
@@ -600,6 +607,47 @@ def compaction_cases():
             words[i] = padded.view(">u4").astype(np.uint32)
         cases.append((f"test_dense_path_{trial}", words.view(np.int32),
                       (nbytes * 8).astype(np.int32)))
+    return cases
+
+
+def compaction_rows(nbytes, W, seed, garbage=False):
+    """words [B, W] int32 of frames of random bytes of the given lengths,
+    zero past each frame (as pack writes them) or random there, and their
+    total_bits."""
+    rng = np.random.default_rng(seed)
+    nbytes = np.asarray(nbytes, np.int64)
+    raw = rng.integers(0, 256, (len(nbytes), 4 * W), dtype=np.uint8)
+    if not garbage:
+        raw[np.arange(4 * W)[None, :] >= nbytes[:, None]] = 0
+    words = raw.view(">u4").astype(np.uint32).view(np.int32)
+    return words, (nbytes * 8).astype(np.int32)
+
+
+def compaction_edge_cases(silent_words, silent_bits):
+    """The edge cases of the compaction's output-driven grid, from seed 2024
+    (tests/test_torch_compact_layout.py holds its model of the kernel to them
+    on the CPU): (name, words, total_bits) of 4-byte frames at each byte phase, 10-20-byte frames many to a chunk,
+    frames ending at each phase, frames of 4*W bytes, one frame, chunk
+    boundaries inside a frame and on one, garbage past the tails, the given
+    silent frames (a level-5 encode of B=512 zero frames) and 8,192 frames
+    (starts beyond 48 KB of shared memory)."""
+    rng = np.random.default_rng(2024)
+    cases = [(f"four_byte_frames_phase{p}", *compaction_rows([4 + p] + [4] * 700, 2, 10 + p))
+             for p in range(4)]
+    cases.append(("tiny_frames_many_to_a_chunk",
+                  *compaction_rows(rng.integers(10, 21, 512), 5, 20)))
+    cases.append(("ends_at_each_phase", *compaction_rows([41] * 96, 11, 21)))
+    full = rng.integers(11, 97, 37)
+    full[[0, 5, 17, 36]] = 96
+    full[4] = 11 + (1 - 11 - full[:4].sum()) % 4
+    cases.append(("frames_of_4W_bytes", *compaction_rows(full, 24, 22)))
+    cases.append(("one_frame", *compaction_rows([37], 10, 23)))
+    cases.append(("chunk_boundaries", *compaction_rows(
+        [1000, 1000, 1000, 1200, 1000, 992, 1000, 1000, 1000, 1100, 1000, 999], 300, 24)))
+    cases.append(("garbage_past_tails",
+                  *compaction_rows(rng.integers(11, 97, 64), 24, 25, garbage=True)))
+    cases.append(("silence_512", silent_words, silent_bits))
+    cases.append(("frames_8192", *compaction_rows(rng.integers(4, 21, 8192), 5, 26)))
     return cases
 
 
@@ -1980,7 +2028,9 @@ def main() -> None:
                      *enc8(frames24[:64], np.arange(64))[:2]),
                     (f"level5_batch_{DECODE_B}x{BLOCKSIZE}",
                      *enc5(frames[:DECODE_B], np.arange(DECODE_B))[:2])]
-    for name, w_c, tb_c in compaction_cases() + real_batches:
+    silent = enc5(np.zeros((DECODE_B, BLOCKSIZE, 2), np.int32), np.arange(DECODE_B))[:2]
+    edge_cases = compaction_edge_cases(*silent)
+    for name, w_c, tb_c in compaction_cases() + edge_cases + real_batches:
         w_c = torch.as_tensor(w_c, device=dev)
         tb_c = torch.as_tensor(tb_c, device=dev)
         got = cst.compact_stream(w_c, tb_c)
@@ -2008,6 +2058,7 @@ def main() -> None:
             c_bytes = read_words * 4 + nb * 4 + nb * wn * 4 + 8
             compact_timing[name] = {
                 "kernel_ms": graph_ms(lambda: cst.compact_stream(w_c, tb_c)),
+                "blocks": cst.grid_blocks(nb, wn),
                 "plain_ms": time_ms(lambda: packer.compact_stream_words(w_c, tb_c),
                                     iters=3, warmup=1),
                 # masked_select sizes its output from the data, which
@@ -2017,7 +2068,32 @@ def main() -> None:
                 "bytes": c_bytes, "stream_bytes": int(got[1]),
                 "padded_bytes": nb * wn * 4}
             del rows, keep, lib_bytes, stream_bytes
-    del real_batches, enc5, enc8
+    # the least a launch of the B=64 grid costs (the source's empty kernel),
+    # and what the compaction adds after pack() on the dense route, where
+    # programmatic dependent launch overlaps its launch with pack's tail
+    t64 = compact_timing[f"level5_batch_64x{BLOCKSIZE}"]
+    fields5, pack5 = build_frame_encoder_parts(cfg, device=dev)
+    values64, nbits64 = fields5(frames[:64], np.arange(64))[:2]
+    floor = {}
+    for pdl in (True, False):
+        key = "pdl" if pdl else "plain"
+        floor[key] = graph_ms(lambda: cst.launch_probe(t64["blocks"], pdl))
+    pack_ms, after = [], {"compact": [], "probe_pdl": [], "probe_plain": []}
+    for _ in range(2):  # in turns: pack alone, then each follower after it
+        pack_ms.append(graph_ms(lambda: pack5(values64, nbits64)))
+        after["compact"].append(graph_ms(lambda: cst.compact_stream(*pack5(values64, nbits64))))
+        for pdl in (True, False):
+            after["probe_pdl" if pdl else "probe_plain"].append(graph_ms(
+                lambda: (pack5(values64, nbits64), cst.launch_probe(t64["blocks"], pdl))))
+    pack_alone = min(pack_ms)
+    t64["launch_floor_ms"] = floor["pdl"]
+    t64["launch_floor_plain_ms"] = floor["plain"]
+    t64["pack_ms"] = pack_alone
+    t64["after_pack_ms"] = min(after["compact"]) - pack_alone
+    t64["probe_after_pack_ms"] = {k[6:]: min(v) - pack_alone for k, v in after.items()
+                                  if k.startswith("probe")}
+    t64["turns_ms"] = {"pack": pack_ms, **after}
+    del real_batches, enc5, enc8, silent, edge_cases, fields5, pack5, values64, nbits64
     torch.cuda.empty_cache()
     emit({"phase": "kernels_compact", "card": card, "kernel": "compact_stream_kernel",
           "cases": ccases, "timing": compact_timing})
@@ -2694,7 +2770,11 @@ def main() -> None:
         "ms": ct512["kernel_ms"], "plain_ms": ct512["plain_ms"],
         "bound_ms": ct512["bound_ms"], "bound_by": "bytes",
         "library_ms": ct512["library_ms"],
-        "ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["kernel_ms"]}, {
+        "ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["kernel_ms"],
+        "bound_ms_b64": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["bound_ms"],
+        "ms_24bit_b64": compact_timing[f"level8_24bit_batch_64x{BLOCKSIZE}"]["kernel_ms"],
+        "launch_floor_ms": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["launch_floor_ms"],
+        "after_pack_ms": compact_timing[f"level5_batch_64x{BLOCKSIZE}"]["after_pack_ms"]}, {
         "name": "iir_scan", "route": "cuda", "kernel": "equal_loudness_kernel",
         "source": "flac_tpu_torch/csrc/iir_scan.cu",
         "replaces": "flac_tpu/replaygain/__init__.py:73",

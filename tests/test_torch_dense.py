@@ -27,6 +27,7 @@ from flac_tpu_torch.encode import encoder as t_enc
 from flac_tpu_torch.encode import frame_encoder as t_fe
 from flac_tpu_torch.encode import packer as t_packer
 from flac_tpu_torch.kernels import compact_stream
+from flac_tpu_torch.kernels._build import KernelError
 
 T = 1024
 
@@ -128,7 +129,7 @@ def test_dense_route_rule(monkeypatch):
 def _encode_jax(sig, dense, bps=16, **kw):
     """flac_tpu's StreamEncoder, forced dense as tests/test_dense_path.py
     forces it."""
-    cfg = j_fe.EncoderConfig.from_level(5, channels=2, bits_per_sample=bps,
+    cfg = j_fe.EncoderConfig.from_level(5, channels=sig.shape[1], bits_per_sample=bps,
                                         sample_rate=44100, blocksize=T)
     out = io.BytesIO()
     enc = j_enc.StreamEncoder(cfg, out, batch_frames=4, total_samples_estimate=len(sig),
@@ -148,7 +149,7 @@ def _encode_torch(sig, monkeypatch, dense, bps=16, **kw):
         monkeypatch.setenv("FLAC_TPU_PACKER", "pallas")
     else:
         monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
-    cfg = t_fe.EncoderConfig.from_level(5, channels=2, bits_per_sample=bps,
+    cfg = t_fe.EncoderConfig.from_level(5, channels=sig.shape[1], bits_per_sample=bps,
                                         sample_rate=44100, blocksize=T)
     out = io.BytesIO()
     enc = t_enc.StreamEncoder(cfg, out, batch_frames=4, total_samples_estimate=len(sig),
@@ -160,21 +161,42 @@ def _encode_torch(sig, monkeypatch, dense, bps=16, **kw):
     return out.getvalue(), enc.stats
 
 
-def test_dense_stream_encoder_bytes_match(monkeypatch):
+def _check_dense_bytes(sig, monkeypatch, bps=16, **kw):
     """Batches of 4 and 2 frames and a partial frame: the dense route's bytes
-    equal the non-dense route's and flac_tpu's dense ones, seektable
-    filled."""
+    equal the non-dense route's and flac_tpu's dense ones. Returns them."""
     monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
-    sig = make_signal(T * 6 + 321, 2, 16, kind="quiet", seed=77)
-    points = [0, 2048, 5000]
-    ref = _encode_jax(sig, True, seekpoints=points)
+    ref = _encode_jax(sig, True, bps=bps, **kw)
     before = compact_stream.launches
-    dense, stats = _encode_torch(sig, monkeypatch, True, seekpoints=points)
-    plain, _ = _encode_torch(sig, monkeypatch, False, seekpoints=points)
+    dense, stats = _encode_torch(sig, monkeypatch, True, bps=bps, **kw)
+    plain, _ = _encode_torch(sig, monkeypatch, False, bps=bps, **kw)
     assert dense == ref
     assert plain == dense
     assert stats.batches == 3 and stats.frames == 7
     assert compact_stream.launches == before  # the CPU takes the plain compaction
+    return dense
+
+
+def test_dense_stream_encoder_bytes_match(monkeypatch):
+    """_check_dense_bytes on a quiet stereo signal, seektable filled."""
+    sig = make_signal(T * 6 + 321, 2, 16, kind="quiet", seed=77)
+    _check_dense_bytes(sig, monkeypatch, seekpoints=[0, 2048, 5000])
+
+
+@pytest.mark.parametrize("case", ["near_silent_8bit_mono", "constant_stereo"])
+def test_dense_stream_encoder_bytes_match_tiny_frames(monkeypatch, case):
+    """_check_dense_bytes on signals whose frames are 10 to 150 bytes
+    (constant subframes, one-bit residuals): the frames that the
+    compaction's output-driven grid packs many to a chunk on the card."""
+    if case == "near_silent_8bit_mono":
+        bps, rng = 8, np.random.default_rng(79)
+        sig = np.zeros((T * 6 + 97, 1), np.int32)
+        sig[rng.integers(2 * T, len(sig), 12), 0] = rng.choice([-1, 1], 12)
+    else:
+        bps, sig = 16, make_signal(T * 6 + 97, 2, 16, kind="constant")
+    dense = _check_dense_bytes(sig, monkeypatch, bps=bps)
+    # STREAMINFO's max framesize: tens of frames to a 2,048-byte chunk
+    max_frame_bytes = int.from_bytes(dense[15:18], "big")
+    assert 0 < max_frame_bytes < (160 if case == "near_silent_8bit_mono" else 32)
 
 
 @pytest.mark.parametrize("case", ["sine_passes", "flagged_24bit_raises"])
@@ -204,9 +226,15 @@ def test_dense_verify_matches_flac_tpu(monkeypatch, case):
 
 @pytest.mark.cuda
 def test_cuda_compaction_kernel_matches_plain_on_card():
+    """The kernel against the plain version on TestCompaction's cases, a
+    real batch and test_torch_compact_layout.py's edge cases of the
+    output-driven decomposition; a batch of more frames than its shared
+    memory holds raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
-    for words, total_bits, _ in [*CASES, (*_real_batch(), None)]:
+    from test_torch_compact_layout import edge_cases
+    for words, total_bits, _ in [*CASES, (*_real_batch(), None),
+                                 *((w, tb, None) for w, tb in edge_cases().values())]:
         w = torch.as_tensor(words, device="cuda")
         tb = torch.as_tensor(total_bits, device="cuda")
         before = compact_stream.launches
@@ -215,3 +243,10 @@ def test_cuda_compaction_kernel_matches_plain_on_card():
         ref = t_packer.compact_stream_words(w, tb)
         torch.cuda.synchronize()
         assert torch.equal(got[0], ref[0]) and int(got[1]) == int(ref[1])
+    # more frames than the kernel's shared memory holds: refused
+    too_many = compact_stream._lib().flac_compact_stream_max_frames() + 1
+    with pytest.raises(KernelError):
+        compact_stream.compact_stream(torch.zeros((too_many, 1), dtype=torch.int32,
+                                                  device="cuda"),
+                                      torch.full((too_many,), 32, dtype=torch.int32,
+                                                 device="cuda"))
