@@ -53,12 +53,28 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     torch.profiler (device busy time, device events); the idle
                     share divides the busy time by the unprofiled wall; 3
                     pack() calls under the profiler (after a warm-up step)
-                    must be 3 pack kernels and no other device event. The whole encode runs once more under
-                    torch.profiler (device only); its busy time over the first
-                    run's wall gives the run's idle share. The stream's SHA-256
-                    is printed, to compare streams across versions.
+                    must be 3 pack kernels and no other device event. These
+                    stages are the eager ones (the steps' `.fn`). On CUDA
+                    the encode step is one CUDA graph a batch shape
+                    (flac_tpu_torch/graphs.py): the encode must run its
+                    first batch eagerly, capture at the second and replay
+                    the rest (one capture and full batches - 2 replays; the
+                    partial frame's step once, eagerly), every launch count
+                    still one a call. graph_step_check runs three batches
+                    through fresh graphed steps (eager, capture, replay),
+                    each equal to build_frame_encoder_parts and the
+                    compaction on the card, and times the replayed batch
+                    (host and wall, device busy time and events), the
+                    capture, and the pool at B=64 and B=512, and reads the
+                    dense step's graph (its programmatic edge). The whole
+                    encode runs once more (all replays), then under
+                    torch.profiler (device only); its busy time over the
+                    first run's wall and over the replayed run's gives the
+                    run's idle shares. The stream's SHA-256 is printed, to
+                    compare streams across versions.
 5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s under
                     FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
+                    its graph route phase 4's pattern,
                     pack_words_multi must launch once a batch, the
                     compaction once a batch of full frames, and the
                     verifier must decode every batch of full frames through
@@ -104,10 +120,13 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     without verify; a lossless decode by the port's host
                     decoder; the first 16 frames encoded on the CPU give the
                     same bytes. One 64-frame batch is timed by stage and its
-                    device idle share taken as in phase 4; the SHA-256 must
-                    be the padded route's. Then 10 s of the same format with -p and escape
-                    coding on tests/test_escape.py's burst signal: escaped
-                    partitions, lossless, the first 8 frames CPU-identical.
+                    device idle share taken as in phase 4, and the graphed
+                    steps checked and timed as in phase 4; the graph route
+                    as in phase 4; the SHA-256 must be the padded route's.
+                    Then 10 s of the same format with -p and escape coding
+                    on tests/test_escape.py's burst signal: escaped
+                    partitions, lossless, the first 8 frames CPU-identical,
+                    the graph route as in phase 4, its SHA-256 printed.
 9. decode_hires    — decode_bytes_device of the 24-bit stream: the exact input,
                     MD5 checked, on path "device" (the partial frame and any
                     frame the scan flags on the host, counted), the narrow
@@ -120,7 +139,8 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     stereo at 28 bits (mid-side on: a 29-bit side channel,
                     the int64 LPC path) and at 32 bits (mid-side off): the
                     verifier through the wide scan kernel, the compaction
-                    once a batch of full frames; lossless on the
+                    once a batch of full frames, the one batch eager (no
+                    capture); lossless on the
                     host decoder; then decode_bytes_device of each gives the
                     exact input through the wide scan kernel, launches
                     counted.
@@ -778,6 +798,169 @@ def zero_launch_counts() -> None:
     rs.launches = rs.wide_launches = rr.launches = iir.launches = 0
 
 
+def graph_counts() -> tuple[int, int, int]:
+    """(eager calls, captures, replays) of the graphed encode steps in this
+    process (flac_tpu_torch.graphs)."""
+    from flac_tpu_torch import graphs
+    return graphs.eager_calls, graphs.captures, graphs.replays
+
+
+def check_first_encode(label: str, since: tuple, full_batches: int) -> dict:
+    """The graph route of an encode_file call that is the first at its
+    configuration, with a final partial frame: the batches of full frames
+    run eagerly once, are captured at the second batch and replayed from the
+    third on; the partial frame's step runs eagerly, once."""
+    eager, caps, reps = (a - b for a, b in zip(graph_counts(), since))
+    want = (2, 1 if full_batches >= 2 else 0, max(full_batches - 2, 0))
+    if (eager, caps, reps) != want:
+        raise AssertionError(f"{label}: (eager calls, captures, replays) {(eager, caps, reps)} "
+                             f"for {full_batches} batches of full frames, not {want}")
+    return {"eager_calls": eager, "captures": caps, "replays": reps}
+
+
+def graph_edges(fn) -> dict:
+    """What a CUDA graph of fn() holds: its nodes, and its edges by type
+    (libcuda's cuGraphGetEdges_v2: "default" or "programmatic", the
+    edge that a launch with programmatic dependent launch becomes), with
+    the kernels at both ends of each programmatic edge. The graph is
+    captured, read and dropped, never replayed."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size_p, name_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(
+        ctypes.c_char_p)
+    for fn_name, args in (("cuGraphGetNodes", [ptr, ptr, size_p]),
+                          ("cuGraphGetEdges_v2", [ptr, ptr, ptr, ptr, size_p]),
+                          ("cuGraphKernelNodeGetParams_v2", [ptr, ptr]),
+                          ("cuFuncGetName", [name_p, ptr]), ("cuKernelGetName", [name_p, ptr])):
+        getattr(cu, fn_name).argtypes = args
+        getattr(cu, fn_name).restype = ctypes.c_int  # CUresult
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = graph.raw_cuda_graph()
+    n_nodes, n_edges = ctypes.c_size_t(0), ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n_nodes)) != 0 or \
+            cu.cuGraphGetEdges_v2(raw, None, None, None, ctypes.byref(n_edges)) != 0:
+        raise AssertionError("libcuda did not report the graph's nodes and edges")
+    src = (ctypes.c_void_p * n_edges.value)()
+    dst = (ctypes.c_void_p * n_edges.value)()
+    data = (ctypes.c_uint8 * (8 * n_edges.value))()  # CUgraphEdgeData: 8 bytes
+    if cu.cuGraphGetEdges_v2(raw, src, dst, data, ctypes.byref(n_edges)) != 0:
+        raise AssertionError("cuGraphGetEdges_v2 failed")
+
+    def kernel_name(node) -> str:
+        params = (ctypes.c_uint8 * 256)()  # CUDA_KERNEL_NODE_PARAMS_v2
+        if cu.cuGraphKernelNodeGetParams_v2(node, params) != 0:
+            return "?"
+        # the struct's func (offset 0), else its kern (offset 56)
+        func, kern = (ctypes.c_void_p.from_buffer(params, off).value for off in (0, 56))
+        name = ctypes.c_char_p()
+        ok = (cu.cuFuncGetName(ctypes.byref(name), func) == 0 if func
+              else cu.cuKernelGetName(ctypes.byref(name), kern) == 0)
+        return name.value.decode() if ok and name.value else "?"
+
+    kinds = {0: "default", 1: "programmatic"}
+    by_type, programmatic = {}, []
+    for i in range(n_edges.value):
+        kind = kinds.get(data[8 * i + 2], str(data[8 * i + 2]))
+        by_type[kind] = by_type.get(kind, 0) + 1
+        if kind == "programmatic":
+            programmatic.append([kernel_name(src[i]), kernel_name(dst[i])])
+    del graph
+    return {"nodes": n_nodes.value, "edges": by_type, "programmatic_edges": programmatic}
+
+
+def graph_step_check(cfg, frames: np.ndarray, dev, label: str) -> dict:
+    """The graphed encode steps on three batches of 64 frames and the
+    pool at 512.
+
+    Fresh steps (graphs.GraphedStep) around the eager functions of
+    build_frame_encoder_dense and build_frame_encoder run the batches as
+    call 1 (eager), call 2 (capture, then one replay) and call 3 (replay);
+    each must equal build_frame_encoder_parts composed with the compaction
+    on the same batch: the words, total_bits, stream and total. Each call's
+    wall and host time (the call's return, before the device is done), 7
+    more replays for the steady call, one replay under torch.profiler (the
+    device's busy time and events), the pool (memory_reserved before and
+    after the capture) and capture time at B=64 and at B=512 (eager, then
+    capture of the same batch, equal outputs), and the dense step's graph
+    read by graph_edges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from flac_tpu_torch import graphs
+    from flac_tpu_torch.encode import packer
+    from flac_tpu_torch.encode.frame_encoder import (build_frame_encoder,
+                                                     build_frame_encoder_dense,
+                                                     build_frame_encoder_parts)
+
+    fields_fn, pack_fn = build_frame_encoder_parts(cfg, device=dev)
+    dense_fn = build_frame_encoder_dense(cfg, device=dev).fn
+    full_fn = build_frame_encoder(cfg, device=dev).fn
+    dense = graphs.GraphedStep(dense_fn, f"{label} dense B=64", dev)
+    full = graphs.GraphedStep(full_fn, f"{label} full B=64", dev)
+
+    def timed(step, b, f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(b, f)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    calls = []
+    for i, kind in enumerate(("eager", "capture", "replay")):
+        b, f = frames[64 * i: 64 * (i + 1)], np.arange(64 * i, 64 * (i + 1))
+        w_ref, tb_ref = pack_fn(*fields_fn(b, f)[:2])
+        s_ref, tot_ref = packer.compact_stream_words_kernel(w_ref, tb_ref)
+        (s, tot, tb, _), host_ms, wall_ms = timed(dense, b, f)
+        w, tb_full, _ = full(b, f)
+        torch.cuda.synchronize()
+        equal = (torch.equal(s, s_ref) and int(tot) == int(tot_ref) and torch.equal(tb, tb_ref)
+                 and torch.equal(w, w_ref) and torch.equal(tb_full, tb_ref))
+        if not equal:
+            raise AssertionError(f"{label}: batch {i} ({kind}) through the graphed step "
+                                 "differs from the eager parts")
+        calls.append({"call": kind, "host_ms": host_ms, "wall_ms": wall_ms,
+                      "stream_words_equal": True, "words_equal": True})
+    steady = [timed(dense, b, f)[1:] for _ in range(7)]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dense(b, f)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    pools = {"B64_dense": graphs.log[-2], "B64_full": graphs.log[-1]}
+    dense.release()
+    full.release()
+    # what the graph makes of the compaction's programmatic dependent launch
+    x, fx = torch.as_tensor(frames[:64], device=dev), torch.arange(64, device=dev)
+    try:
+        edges = graph_edges(lambda: dense_fn(x, fx))
+    except Exception as e:  # a reading libcuda or torch cannot give
+        edges = {"error": f"{type(e).__name__}: {e}"}
+    del x, fx
+    big = graphs.GraphedStep(dense_fn, f"{label} dense B=512", dev)
+    b, f = frames[:512], np.arange(512)
+    eager_out, eager_host, eager_wall = timed(big, b, f)
+    graph_out, cap_host, cap_wall = timed(big, b, f)
+    if not (torch.equal(eager_out[0], graph_out[0]) and int(eager_out[1]) == int(graph_out[1])):
+        raise AssertionError(f"{label}: the B=512 capture differs from its eager call")
+    replay_host, replay_wall = timed(big, b, f)[1:]
+    pools["B512_dense"] = dict(graphs.log[-1], eager_wall_ms=eager_wall,
+                               capture_wall_ms=cap_wall, replay_host_ms=replay_host,
+                               replay_wall_ms=replay_wall)
+    big.release()
+    del eager_out, graph_out
+    torch.cuda.empty_cache()
+    for p in pools.values():
+        p["pool_mb"] = p["pool_bytes"] / 2 ** 20
+    return {"calls_64": calls,
+            "replay_host_ms": float(np.median([h for h, _ in steady])),
+            "replay_wall_ms": float(np.median([w for _, w in steady])),
+            "replay_device_busy_ms": busy_ms(spans) if spans else None,
+            "replay_device_events": len(spans),
+            "pools": pools, "dense_graph": edges}
+
+
 def run_sharded(mesh, fpd: int, pcm: np.ndarray) -> dict:
     """Phase 18 on one rank: encode_corpus_sharded of `pcm` at level 5 and
     decode_corpus_sharded of the stream, each with its wall, launches and
@@ -1162,6 +1345,7 @@ def main() -> None:
         path = os.path.join(tmp, "smoke.flac")
         torch.cuda.synchronize()
         pw.launches = cst.launches = 0
+        since = graph_counts()
         t0 = time.perf_counter()
         stats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5)
         torch.cuda.synchronize()
@@ -1172,6 +1356,7 @@ def main() -> None:
             data = f.read()
     n_full = n // BLOCKSIZE
     full_batches = -(-n_full // 64)  # encode_file's batch_frames
+    graph_route = check_first_encode("the 60 s -5 encode", since, full_batches)
     if launches == 0 or launches != stats.batches:
         raise AssertionError(f"pack kernel launched {launches} times for "
                              f"{stats.batches} frame batches")
@@ -1209,8 +1394,10 @@ def main() -> None:
         (trace_pack) pack() alone under the profiler, where it must be one
         kernel and no other device event."""
         fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev, packer_impl=impl)
-        enc = build_frame_encoder(cfg, device=dev, packer_impl=impl)
-        enc_dense = build_frame_encoder_dense(cfg, device=dev, packer_impl=impl)
+        # the steps' eager functions: these stages stay the eager ones (the
+        # graphed steps are timed by graph_step_check)
+        enc = build_frame_encoder(cfg, device=dev, packer_impl=impl).fn
+        enc_dense = build_frame_encoder_dense(cfg, device=dev, packer_impl=impl).fn
         emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
         chunk = frames[:64].reshape(-1, cfg.channels)
 
@@ -1323,8 +1510,16 @@ def main() -> None:
                     pack_trace_sessions=sessions)
 
     one_batch = stage_batch("pallas")
-    # the whole encode again, device activity only: its busy time over the
-    # unprofiled run's wall is the run's idle share
+    graphed_batch = graph_step_check(cfg, frames, dev, "level5")
+    # the whole encode again, every batch a replay (and the partial frame's
+    # capture), then again under the profiler, device activity only: its
+    # busy time over an unprofiled run's wall is the run's idle share
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "r.flac"), level=5)
+        torch.cuda.synchronize()
+        wall_replayed = time.perf_counter() - t0
     with tempfile.TemporaryDirectory() as tmp, \
             profile(activities=[ProfilerActivity.CUDA]) as prof_run:
         encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "p.flac"), level=5)
@@ -1342,10 +1537,13 @@ def main() -> None:
           "run_device_busy_s": run_busy_s, "run_device_events": len(run_spans),
           "run_device_idle_share": (None if run_busy_s is None
                                     else 1 - run_busy_s / wall),
+          "graph_route": graph_route, "wall_s_replayed": wall_replayed,
+          "run_device_idle_share_replayed": (None if run_busy_s is None
+                                             else 1 - run_busy_s / wall_replayed),
           "cpu_vs_gpu_first_batch": {"frames_differing": diff_frames,
                                      "bytes_differing": diff_bytes},
           "stream_sha256": hashlib.sha256(data).hexdigest(),
-          "one_batch_64": one_batch})
+          "one_batch_64": one_batch, "graphed_batch_64": graphed_batch})
 
     # --- 5. the merged fill with verify on the card ------------------------
     os.environ["FLAC_TPU_PACKER"] = "merged"
@@ -1354,10 +1552,13 @@ def main() -> None:
             path = os.path.join(tmp, "merged.flac")
             torch.cuda.synchronize()
             pw.pack_words_multi.launches = rs.launches = rr.launches = cst.launches = 0
+            since = graph_counts()
             t0 = time.perf_counter()
             mstats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5, verify=True)
             torch.cuda.synchronize()
             merged_wall = time.perf_counter() - t0
+            merged_graph_route = check_first_encode("the merged encode", since,
+                                                    full_batches)
             merged_launches = pw.pack_words_multi.launches
             merged_compact_launches = cst.launches
             verify_launches = (rs.launches, rr.launches)
@@ -1396,6 +1597,7 @@ def main() -> None:
           "verify_subframe_scan_launches": verify_launches[0],
           "verify_restore_scan_launches": verify_launches[1],
           "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
+          "graph_route": merged_graph_route,
           "wall_s_without_verify": merged_noverify_wall,
           "banded_wall_s_again": banded_again_wall,
           "msamples_per_s_per_channel": n / merged_wall / 1e6,
@@ -1646,11 +1848,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         pw.launches = rs.launches = rs.wide_launches = rr.launches = cst.launches = 0
+        since = graph_counts()
         t0 = time.perf_counter()
         hstats = encode_file(pcm24, HIRES_RATE, 24, os.path.join(tmp, "h.flac"), level=8,
                              verify=True)
         torch.cuda.synchronize()
         hires_wall = time.perf_counter() - t0
+        hires_graph_route = check_first_encode("the 24-bit -8 encode", since,
+                                               full_batches24)
         hires_launches = (pw.launches, rs.launches, rs.wide_launches, rr.launches)
         hires_compact_launches = cst.launches
         with open(os.path.join(tmp, "h.flac"), "rb") as f:
@@ -1683,6 +1888,7 @@ def main() -> None:
         raise AssertionError(f"{diff24[0]} of the first 16 24-bit -8 frames differ "
                              f"between the CPU and the card ({diff24[1]} bytes)")
     one_batch_24 = stage_batch("pallas", trace_pack=False, cfg=cfg8, frames=frames24)
+    graphed_batch_24 = graph_step_check(cfg8, frames24, dev, "level8_24bit")
     # -p and escape coding on a signal with full-scale bursts
     pcm_pe = burst_pcm(HIRES_RATE * PE_SECONDS, 24, seed=25)
     cfg_pe = EncoderConfig.from_level(8, 2, 24, HIRES_RATE, do_qlp_coeff_prec_search=True,
@@ -1690,11 +1896,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         torch.cuda.synchronize()
         pw.launches = 0
+        since = graph_counts()
         t0 = time.perf_counter()
         pstats = encode_file(pcm_pe, HIRES_RATE, 24, os.path.join(tmp, "pe.flac"), level=8,
                              do_qlp_coeff_prec_search=True, do_escape_coding=True)
         torch.cuda.synchronize()
         pe_wall = time.perf_counter() - t0
+        pe_graph_route = check_first_encode("the -p / escape encode", since,
+                                            -(-(len(pcm_pe) // BLOCKSIZE) // 64))
         pe_launches = pw.launches
         with open(os.path.join(tmp, "pe.flac"), "rb") as f:
             data_pe = f.read()
@@ -1725,10 +1934,13 @@ def main() -> None:
           "lossless": True, "bytes_equal_without_verify": True,
           "cpu_vs_gpu_first_16": {"frames_differing": diff24[0], "bytes_differing": diff24[1]},
           "stream_sha256": hashlib.sha256(data24).hexdigest(),
-          "one_batch_64": one_batch_24,
+          "graph_route": hires_graph_route,
+          "one_batch_64": one_batch_24, "graphed_batch_64": graphed_batch_24,
           "p_escape": {"seconds_of_audio": PE_SECONDS, "frames": pstats.frames,
                        "batches": pstats.batches, "pack_kernel_launches": pe_launches,
                        "wall_s": pe_wall, "bytes": len(data_pe),
+                       "graph_route": pe_graph_route,
+                       "stream_sha256": hashlib.sha256(data_pe).hexdigest(),
                        "escaped_partitions": escaped, "lossless": True,
                        "cpu_vs_gpu_first_8": {"frames_differing": diff_pe[0],
                                               "bytes_differing": diff_pe[1]}}})
@@ -1833,11 +2045,13 @@ def main() -> None:
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.synchronize()
             pw.launches = rs.launches = rs.wide_launches = rr.launches = cst.launches = 0
+            since = graph_counts()
             t0 = time.perf_counter()
             wstats = encode_file(pcm_w, SAMPLE_RATE, bps, os.path.join(tmp, "w.flac"),
                                  level=5, verify=True)
             torch.cuda.synchronize()
             wwall = time.perf_counter() - t0
+            wgraph = check_first_encode(f"the {bps}-bit encode", since, full_batches_w)
             wlaunch = (pw.launches, rs.launches, rs.wide_launches, rr.launches,
                        cst.launches)
             with open(os.path.join(tmp, "w.flac"), "rb") as f:
@@ -1871,6 +2085,7 @@ def main() -> None:
                           "verify_restore_scan_launches": wlaunch[3],
                           "compact_stream_launches": wlaunch[4], "verify": "passed",
                           "encode_wall_s": wwall, "bytes": len(data_w),
+                          "graph_route": wgraph,
                           "compression_ratio": len(data_w) / (nw_ * 2 * bps / 8),
                           "decode_wall_s": dwall_w, "decode_path": dinfo_w["path"],
                           "host_frames": dinfo_w["host_frames"],
@@ -2021,8 +2236,8 @@ def main() -> None:
     # --- 12. kernels_compact: the compaction kernel against its plain version --
     ccases = []
     compact_timing = {}
-    enc5 = build_frame_encoder(cfg, device=dev)
-    enc8 = build_frame_encoder(cfg8, device=dev)
+    enc5 = build_frame_encoder(cfg, device=dev).fn  # eager: no graph pinned for these
+    enc8 = build_frame_encoder(cfg8, device=dev).fn
     real_batches = [(f"level5_batch_64x{BLOCKSIZE}", *enc5(frames[:64], np.arange(64))[:2]),
                     (f"level8_24bit_batch_64x{BLOCKSIZE}",
                      *enc8(frames24[:64], np.arange(64))[:2]),

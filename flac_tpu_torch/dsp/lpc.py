@@ -120,9 +120,12 @@ def expected_bits_per_residual_sample(lpc_error: torch.Tensor,
                                       total_samples: torch.Tensor | float
                                       ) -> torch.Tensor:
     """FLAC__lpc_compute_expected_bits_per_residual_sample (lpc.c:1325-1351),
-    float64."""
-    error_scale = 0.5 * (_LN2 * _LN2) / torch.as_tensor(
-        total_samples, dtype=torch.float64, device=lpc_error.device)
+    float64. A number `total_samples` folds into a Python float (the same
+    float64 quotient), so that no call uploads it."""
+    if isinstance(total_samples, torch.Tensor):
+        error_scale = 0.5 * (_LN2 * _LN2) / total_samples.to(torch.float64)
+    else:
+        error_scale = 0.5 * (_LN2 * _LN2) / float(total_samples)
     bps = 0.5 * torch.log(error_scale * lpc_error) / _LN2
     # 1e32 as a float64 tensor: torch.where of two Python floats would round
     # it to the default float32, where flac_tpu (x64) keeps float64

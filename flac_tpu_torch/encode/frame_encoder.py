@@ -21,6 +21,10 @@ frames back to back in one word stream on the device (packer's
 compact_stream_words; the CUDA kernel on a GPU). The device follows the
 tensors;
 `build_frame_encoder` takes `device=None`, meaning CUDA (see device.py).
+On CUDA both return the step as one CUDA graph a batch shape
+(graphs.GraphedStep: eager at a shape's first call, captured at its second,
+replayed from then on), the counterpart of flac_tpu's `jax.jit`; on the CPU
+the step runs eagerly. `build_frame_encoder_parts` returns the eager stages.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from flac_tpu_torch import constants as C
 from flac_tpu_torch import crc as crc_mod
+from flac_tpu_torch import graphs
 from flac_tpu_torch import rice
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.dsp import fixed as dsp_fixed
@@ -182,12 +187,15 @@ def _suggested_param(rbps: torch.Tensor, limit: int) -> torch.Tensor:
     return torch.clamp(p, max=limit - 1)
 
 
-def _utf8_fields(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+_UTF8_THRESHOLDS = (0x80, 0x800, 0x10000, 0x200000, 0x4000000, 0x80000000, 1 << 36)
+
+
+def _utf8_fields(n: torch.Tensor, thresholds: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched UTF-8-style coding of frame numbers into 7 byte fields
-    (bitwriter.c:784). n: [B] int64. Returns values [B,7] int64, nbits [B,7]
-    int32."""
-    thresholds = torch.tensor([0x80, 0x800, 0x10000, 0x200000, 0x4000000,
-                               0x80000000, 1 << 36], dtype=_I64, device=n.device)
+    (bitwriter.c:784). n: [B] int64; thresholds: _UTF8_THRESHOLDS as int64
+    on n's device (the encoder builds them once). Returns values [B,7]
+    int64, nbits [B,7] int32."""
     length = 1 + (n[:, None] >= thresholds[None, :]).sum(dim=1)  # [B] in 1..7
     one = torch.ones((), dtype=_I64, device=n.device)
     vals, bits = [], []
@@ -284,16 +292,31 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
     """The encoder for a batch of equal-size frames on `device` (None: CUDA,
     which raises without a GPU). Returns fn(pcm [B, T, Ch] int, frame_numbers
     [B] int) -> (words [B, maxwords] int32, total_bits [B] int32, info dict),
-    tensors on the device; inputs may be numpy arrays or tensors.
+    tensors on the device; inputs may be numpy arrays or tensors. On CUDA
+    fn is a graphs.GraphedStep: one CUDA graph a batch shape, replayed from
+    the shape's third call on, with fresh outputs each call.
 
     `blocksize` overrides cfg.blocksize for the stream's final partial frame;
     `packer_impl` selects the word fill (see resolve_packer_impl).
     FLAC_TPU_WIDE=int64 is read here too (see _build_frame_encoder).
     """
     device = resolve_device(device)
-    return _build_frame_encoder(cfg, blocksize, device,
-                                resolve_packer_impl(packer_impl, device),
-                                _wide_int64())[0]
+    return _graphed_full(cfg, blocksize, device, resolve_packer_impl(packer_impl, device),
+                         _wide_int64())
+
+
+@functools.lru_cache(maxsize=64)
+def _graphed_full(cfg: EncoderConfig, blocksize: int | None, device: torch.device,
+                  packer_impl: str, wide_int64: bool) -> graphs.GraphedStep:
+    full = _build_frame_encoder(cfg, blocksize, device, packer_impl, wide_int64)[0]
+    return graphs.GraphedStep(full, _step_name("encode", cfg, blocksize, packer_impl),
+                              device)
+
+
+def _step_name(kind: str, cfg: EncoderConfig, blocksize: int | None,
+               packer_impl: str) -> str:
+    return (f"{kind} step ({cfg.channels} ch, {cfg.bits_per_sample}-bit, "
+            f"T={blocksize or cfg.blocksize}, {packer_impl} fill)")
 
 
 def use_dense_packer(device: torch.device) -> bool:
@@ -318,15 +341,25 @@ def build_frame_encoder_dense(cfg: EncoderConfig,
     T, Ch] int, frame_numbers [B]) -> (stream [B*maxwords] int32 (uint32
     bits; serialize the valid prefix with packer.stream_words_to_bytes),
     total_bytes int64 scalar, total_bits [B] int32, info dict), on the
-    device."""
-    encode = build_frame_encoder(cfg, device=device, packer_impl=packer_impl)
+    device; on CUDA the whole step, compaction included, is one CUDA graph
+    a batch shape (see build_frame_encoder)."""
+    device = resolve_device(device)
+    return _graphed_dense(cfg, device, resolve_packer_impl(packer_impl, device),
+                          _wide_int64())
+
+
+@functools.lru_cache(maxsize=64)
+def _graphed_dense(cfg: EncoderConfig, device: torch.device, packer_impl: str,
+                   wide_int64: bool) -> graphs.GraphedStep:
+    full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64)[0]
 
     def encode_dense(pcm, frame_numbers):
-        words, total_bits, info = encode(pcm, frame_numbers)
+        words, total_bits, info = full(pcm, frame_numbers)
         stream, total = packer.compact_stream_words_kernel(words, total_bits)
         return stream, total, total_bits, info
 
-    return encode_dense
+    return graphs.GraphedStep(encode_dense, _step_name("dense encode", cfg, None,
+                                                       packer_impl), device)
 
 
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
@@ -334,7 +367,8 @@ def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
                               packer_impl: str | None = None):
     """The split form: (fields_fn, pack_fn). fields_fn(pcm, fnos) -> (values,
     nbits, info) is the candidate search + field assembly; pack_fn(values,
-    nbits) -> (words, total_bits) the word fill and CRC-16."""
+    nbits) -> (words, total_bits) the word fill and CRC-16. Both run eagerly
+    on every device, as flac_tpu's parts are not jitted."""
     device = resolve_device(device)
     return _build_frame_encoder(cfg, blocksize, device,
                                 resolve_packer_impl(packer_impl, device),
@@ -411,6 +445,14 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
     bps_cand = dev(bps_cand_np)
     tvec = torch.arange(T, device=device)
     one64 = dev(1, _I64)
+    # every tensor a call needs from host data is made here, once: a CUDA
+    # graph of the step (graphs.py) cannot record an upload
+    utf8_thresholds = dev(_UTF8_THRESHOLDS, _I64)
+    type_fixed = dev(C.SUBFRAME_TYPE_FIXED, _I32)
+    type_lpc = dev(C.SUBFRAME_TYPE_LPC, _I32)
+    fixed_orders = [dev(o, _I32) for o in range(C.MAX_FIXED_ORDER + 1)]
+    # channel sources of the four stereo assignments (independent, L/S, R/S, M/S)
+    ms_src0, ms_src1 = dev([0, 0, 3, 2], _I64), dev([1, 3, 1, 3], _I64)
 
     def mask_to(v, nbits):
         return v & ((one64 << torch.clamp(nbits.to(_I64), max=63)) - 1)
@@ -475,8 +517,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 cand_bits.append(bits[..., o])
                 model_res.append(res_all[..., o, :])
                 model_meta.append(dict(
-                    type=C.SUBFRAME_TYPE_FIXED,
-                    order=torch.full((B, K), o, dtype=_I32, device=device),
+                    type=type_fixed, order=fixed_orders[o],
                     po=rs.partition_order[..., o], params=rs.params_leaf[..., o, :],
                     raws=rs.raw_bits_leaf[..., o, :],
                     rice2=rs.is_rice2[..., o], qlp=None, prec=None, shift=None))
@@ -593,7 +634,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     cand_bits.append(bits[:, :, a, oi])
                     model_res.append(res[:, :, a, oi, :])
                     model_meta.append(dict(
-                        type=C.SUBFRAME_TYPE_LPC, order=orders[:, :, a, oi],
+                        type=type_lpc, order=orders[:, :, a, oi],
                         po=rs_po[:, :, a, oi], params=rs_params[:, :, a, oi, :],
                         raws=rs_raws[:, :, a, oi, :], rice2=rs_rice2[:, :, a, oi],
                         qlp=qlp[:, :, a, oi, :], prec=prec[:, :, a, oi],
@@ -623,7 +664,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 v = m[key]
                 if v is None:
                     continue
-                v = torch.as_tensor(v, dtype=dtype, device=device)
+                v = v.to(dtype)
                 out = torch.where((midx == i).reshape(sel_shape),
                                   v.expand((B, K) + extra_shape), out)
             return out
@@ -678,8 +719,8 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 ca = torch.where(is_search, searched, reuse)
             else:
                 ca = searched
-            src0 = dev([0, 0, 3, 2], _I64)[ca.long()]
-            src1 = dev([1, 3, 1, 3], _I64)[ca.long()]
+            src0 = ms_src0[ca.long()]
+            src1 = ms_src1[ca.long()]
             ch_srcs = [src0, src1]
             # INDEPENDENT -> channels-1; LS/RS/MS -> 8/9/10 (framing.c:292-310)
             ca_code = torch.where(ca == 0, Ch - 1, 7 + ca)
@@ -703,7 +744,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         f0 = ((C.FRAME_HEADER_SYNC << 18) | (bs_code << 12) | (sr_code << 8)
               | (bps_code << 1))
         add(full_col(f0) | (ca_code.to(_I64)[:, None] << 4), full_col(32))
-        add(*_utf8_fields(frame_numbers))
+        add(*_utf8_fields(frame_numbers, utf8_thresholds))
         add(full_col(bs_ext_val), full_col(bs_ext_bits))
         add(full_col(sr_ext_val), full_col(sr_ext_bits))
         crc8_slot = sum(v.shape[1] for v in values_blocks)  # the CRC-8 field

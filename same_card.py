@@ -11,15 +11,22 @@ process in the same checkout (`same_card.py --probe`, with that checkout's
 flac_tpu_torch and this checkout's timing code) takes:
 
 - the 60 s level-5 stream of chip_smoke.py's main path and its SHA-256;
-- the wall of 5 more encodes of it with each fill, the fills in turns;
+- the wall of 5 more encodes of it with each fill, the fills in turns, and
+  the device's idle share of one more under torch.profiler (its busy time
+  over the median banded wall);
+- the SHA-256 of chip_smoke.py's 30 s 24-bit -8 stream, of its 10 s -p and
+  escape-coding stream and of its 28- and 32-bit streams, and the wall of 3
+  more encodes of the 24-bit stream;
 - the device time of that version's pack() stage, of its fill-only
   wrappers (packer.pack_fields_kernel, packer.pack_fields_merged_kernel)
   and of its fill kernel's launches alone, their inputs staged beforehand,
   at B=64 and B=512, by replays of a CUDA graph (chip_smoke.graph_ms).
 
-The logs go to same_card_logs/ in this checkout. The last line is one JSON
-object with each run's exit code, card and probe; the exit code is 0 when
-every run passed and every stream was byte-identical.
+The logs go to same_card_logs/ in this checkout. Every SHA-256 that a run
+of chip_smoke.py prints (a key ending in "sha256" in its JSON lines) is
+compared with the same key of the other runs that print it. The last line is
+one JSON object with each run's exit code, card and probe; the exit code is
+0 when every run passed and every stream was byte-identical.
 """
 
 from __future__ import annotations
@@ -100,6 +107,38 @@ def probe() -> dict:
                 torch.cuda.synchronize()
                 w.append(time.perf_counter() - t0)
         os.environ.pop("FLAC_TPU_PACKER")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            encode_file(pcm, cs.SAMPLE_RATE, 16, path, level=5)
+            torch.cuda.synchronize()
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_s = cs.busy_ms(spans) / 1e3 if spans else None
+        out["encode_device_busy_s"] = busy_s
+        out["encode_device_idle_share"] = (None if busy_s is None else
+                                           1 - busy_s / float(np.median(walls["pallas"])))
+        pcm24 = cs.make_pcm(cs.HIRES_RATE * cs.HIRES_SECONDS, seed=24, rate=cs.HIRES_RATE,
+                            bits=24)
+        hires = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_file(pcm24, cs.HIRES_RATE, 24, path, level=8)
+            torch.cuda.synchronize()
+            hires.append(time.perf_counter() - t0)
+            with open(path, "rb") as f:
+                out["hires_stream_sha256"] = hashlib.sha256(f.read()).hexdigest()
+        out["hires_encode_wall_s"] = hires[1:]
+        out["hires_encode_wall_s_median"] = float(np.median(hires[1:]))
+        encode_file(cs.burst_pcm(cs.HIRES_RATE * cs.PE_SECONDS, 24, seed=25), cs.HIRES_RATE,
+                    24, path, level=8, do_qlp_coeff_prec_search=True, do_escape_coding=True)
+        with open(path, "rb") as f:
+            out["p_escape_stream_sha256"] = hashlib.sha256(f.read()).hexdigest()
+        for bps in (28, 32):
+            encode_file(cs.make_pcm(cs.SAMPLE_RATE * cs.WIDE_SECONDS, seed=bps, bits=bps,
+                                    sigma=2.0 ** 18), cs.SAMPLE_RATE, bps, path, level=5)
+            with open(path, "rb") as f:
+                out[f"wide{bps}_stream_sha256"] = hashlib.sha256(f.read()).hexdigest()
     for impl, w in walls.items():
         out[f"encode_wall_s_{impl}"] = w
         out[f"encode_wall_s_{impl}_median"] = float(np.median(w))
@@ -116,6 +155,33 @@ def probe() -> dict:
             out[f"kernel_graph_ms_{impl}_B{B}"] = cs.graph_ms(
                 _fill_launches(pw, packer, impl == "merged", v, n, maxwords))
     return out
+
+
+def printed_sha256(log: str) -> dict:
+    """Every "...sha256" value in the JSON lines of a chip_smoke.py log, by
+    its path of keys."""
+    found = {}
+
+    def walk(obj, path):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                if isinstance(v, str) and k.endswith("sha256"):
+                    found["/".join(path + [k])] = v
+                else:
+                    walk(v, path + [k])
+        elif isinstance(obj, list):
+            for i, v in enumerate(obj):
+                walk(v, path + [str(i)])
+
+    with open(log) as f:
+        for line in f:
+            if line.startswith("{"):
+                try:
+                    obj = json.loads(line)
+                except ValueError:
+                    continue
+                walk(obj, [str(obj.get("phase", "?"))])
+    return found
 
 
 def main(other: str) -> int:
@@ -140,10 +206,20 @@ def main(other: str) -> int:
         else:
             run["probe_error"] = p.stderr[-2000:]
         runs.append(run)
-    digests = {r.get("stream_sha256") for r in runs}
-    identical = len(digests) == 1 and None not in digests
+    keys = [k for k in runs[0] if k.endswith("sha256")]
+    digests = {k: {r.get(k) for r in runs} for k in keys}
+    printed = [printed_sha256(r["log"]) for r in runs]
+    for k in set().union(*printed):
+        values = {p[k] for p in printed if k in p}
+        digests[f"log:{k}"] = values
+    differing = sorted(k for k, v in digests.items() if len(v) != 1 or None in v)
+    identical = bool(keys) and not differing
+    for r, p in zip(runs, printed):
+        r["printed_sha256"] = p
     ok = identical and all(r["rc"] == 0 and r["probe_rc"] == 0 for r in runs)
-    print(json.dumps({"ok": ok, "streams_identical": identical, "runs": runs}), flush=True)
+    print(json.dumps({"ok": ok, "streams_identical": identical,
+                      "sha256_compared": sorted(digests), "sha256_differing": differing,
+                      "runs": runs}), flush=True)
     return 0 if ok else 1
 
 

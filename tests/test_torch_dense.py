@@ -250,3 +250,66 @@ def test_cuda_compaction_kernel_matches_plain_on_card():
                                                   device="cuda"),
                                       torch.full((too_many,), 32, dtype=torch.int32,
                                                  device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_graphed_steps_equal_the_eager_parts():
+    """On the card the encode steps run a shape's first call eagerly,
+    capture at the second and replay from the third: every call equals
+    build_frame_encoder_parts (then the compaction) on the same batch, int16
+    and int32 PCM alike; an output kept from one call is unchanged by the
+    next; pack and the compaction count one launch a call, replays
+    included. A step whose capture reads a device value on the host raises
+    KernelError naming the step, and the card goes on working."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU mode")
+    from flac_tpu_torch import graphs
+    from flac_tpu_torch.kernels import pack_words
+    cfg = t_fe.EncoderConfig.from_level(5, 2, 16, 44100, blocksize=T)
+    sig = make_signal(20 * T, 2, 16, kind="sine", seed=5)
+    sig = sig + np.random.default_rng(5).integers(-300, 300, sig.shape).astype(np.int32)
+    batches = [b.astype(np.int16) if i % 2 else b for i, b in
+               enumerate(np.clip(sig, -32768, 32767).reshape(5, 4, T, 2))]
+    fields_fn, pack_fn = t_fe.build_frame_encoder_parts(cfg, device="cuda")
+    for build in (t_fe.build_frame_encoder, t_fe.build_frame_encoder_dense):
+        assert build(cfg, device="cuda").device.type == "cuda"
+    # fresh steps around the built steps' eager functions: call 1 at each shape
+    # runs eagerly, whatever ran before in this process
+    full = graphs.GraphedStep(t_fe.build_frame_encoder(cfg, device="cuda").fn, "full", "cuda")
+    dense = graphs.GraphedStep(t_fe.build_frame_encoder_dense(cfg, device="cuda").fn,
+                               "dense", "cuda")
+    kept = []
+    since = (graphs.eager_calls, graphs.captures, graphs.replays)
+    for i in range(5):
+        pcm = batches[i]
+        fnos = np.arange(4 * i, 4 * i + 4, dtype=np.int64)
+        w_ref, tb_ref = pack_fn(*fields_fn(pcm.astype(np.int32), fnos)[:2])
+        s_ref, tot_ref = t_packer.compact_stream_words_kernel(w_ref, tb_ref)
+        before = (pack_words.launches, compact_stream.launches)
+        w, tb, info = full(pcm, fnos)
+        s, tot, tb2, _ = dense(pcm, fnos)
+        assert (pack_words.launches, compact_stream.launches) == (before[0] + 2,
+                                                                  before[1] + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(w, w_ref) and torch.equal(tb, tb_ref) and torch.equal(tb2, tb_ref)
+        assert torch.equal(info["frame_bits"], tb_ref)
+        assert torch.equal(s, s_ref) and int(tot) == int(tot_ref)
+        # every output kept from an earlier call is as it was
+        assert all(torch.equal(a, b) and a.data_ptr() != s.data_ptr() for a, b in kept)
+        kept.append((s, s.clone()))
+    # int32 batches at calls 0, 2, 4 and int16 ones at 1, 3: two shapes a
+    # step, each step's calls eager, eager, capture, capture, replay
+    counts = (graphs.eager_calls, graphs.captures, graphs.replays)
+    assert tuple(a - b for a, b in zip(counts, since)) == (4, 4, 2)
+
+    def reads_the_device(x):
+        return x * int(x.sum().item())
+
+    bad = graphs.GraphedStep(reads_the_device, "reads the device", "cuda")
+    x = torch.arange(8, device="cuda")
+    assert torch.equal(bad(x), x * 28)  # the eager first call
+    with pytest.raises(KernelError, match="reads the device"):
+        bad(x)
+    w, tb, _ = full(batches[0], np.arange(4, dtype=np.int64))
+    torch.cuda.synchronize()
+    assert torch.equal(tb, pack_fn(*fields_fn(batches[0], np.arange(4))[:2])[1])

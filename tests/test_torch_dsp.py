@@ -253,7 +253,8 @@ def test_utf8_frame_number_fields():
                   0x200000, 0x3FFFFFF, 0x4000000, 0x7FFFFFFF, 0x80000000,
                   (1 << 36) - 1, (1 << 36)], np.int64)
     ref = jax.jit(j_fe._utf8_fields)(jnp.array(n))
-    got = t_fe._utf8_fields(torch.as_tensor(n))
+    got = t_fe._utf8_fields(torch.as_tensor(n),
+                            torch.tensor(t_fe._UTF8_THRESHOLDS, dtype=torch.int64))
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(_np(g), _np(r))
 
