@@ -1,0 +1,8 @@
+"""Percent of a decode cell's traced window in which no event ran on the
+device."""
+
+from cardbench import trace
+
+
+def read(rec):
+    return trace.idle_percent(rec["trace"]) if rec["loop"] == "decode" else None
