@@ -22,6 +22,13 @@ groups of one blocksize, each frame's header width given to the decoder;
 small groups go to the host decoder (path "device-variable").
 
 MD5 of the assembled PCM is the end-to-end verdict (stream_decoder.h:797).
+
+Each decode_bytes_device call is one request of flac_tpu_torch.trace
+(`decoder.call`); its stages are spans below it: `decoder.open`,
+`decoder.upload`, `decoder.index`, `decoder.build`, `decoder.batch`,
+`decoder.copy_back`, `decoder.host_frames`, `decoder.crc16`, `decoder.md5`
+(on the MD5 worker thread, its parent the span that handed it over),
+`decoder.md5_wait` and `decoder.assemble`.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 
 from flac_tpu_torch import constants as C
 from flac_tpu_torch import crc as crc_mod
+from flac_tpu_torch import trace
 from flac_tpu_torch.decode import host_decoder as hd
 from flac_tpu_torch.decode.frame_decoder import (
     DecoderGeometry, _HeaderCfg, build_frame_decoder, bytes_to_words)
@@ -246,21 +254,22 @@ class StreamDecoder:
     def __init__(self, data: bytes, check_md5: bool = True, batch_frames: int = 64,
                  max_lpc_order: int = 32, continue_on_error: bool = False,
                  device: str | torch.device | None = None):
-        self.device = resolve_device(device)
-        self.data_bytes = bytes(data)
-        self.continue_on_error = continue_on_error
-        self.errors: list[str] = []
-        self.d = np.frombuffer(self.data_bytes, np.uint8)
-        pos = hd.skip_id3v2(self.data_bytes, 0)
-        if self.data_bytes[pos:pos + 4] != C.STREAM_SYNC_STRING:
-            raise hd.DecodeError("missing fLaC stream marker")
-        self.metadata, self.audio_offset = parse_metadata(self.data_bytes, pos + 4)
-        self.streaminfo = self.metadata[0]
-        if not isinstance(self.streaminfo, StreamInfo):
-            raise hd.DecodeError("first metadata block is not STREAMINFO")
-        self.check_md5 = check_md5
-        self.batch_frames = batch_frames
-        self.max_lpc_order = max_lpc_order
+        with trace.span("decoder.open"):
+            self.device = resolve_device(device)
+            self.data_bytes = bytes(data)
+            self.continue_on_error = continue_on_error
+            self.errors: list[str] = []
+            self.d = np.frombuffer(self.data_bytes, np.uint8)
+            pos = hd.skip_id3v2(self.data_bytes, 0)
+            if self.data_bytes[pos:pos + 4] != C.STREAM_SYNC_STRING:
+                raise hd.DecodeError("missing fLaC stream marker")
+            self.metadata, self.audio_offset = parse_metadata(self.data_bytes, pos + 4)
+            self.streaminfo = self.metadata[0]
+            if not isinstance(self.streaminfo, StreamInfo):
+                raise hd.DecodeError("first metadata block is not STREAMINFO")
+            self.check_md5 = check_md5
+            self.batch_frames = batch_frames
+            self.max_lpc_order = max_lpc_order
 
     def _host_fallback(self, path: str) -> tuple[np.ndarray, dict]:
         host = hd.HostDecoder(self.data_bytes, check_md5=self.check_md5,
@@ -273,27 +282,36 @@ class StreamDecoder:
     def _device_setup(self):
         """(words on the device, frame offsets or None, batch decoder, B)."""
         si = self.streaminfo
-        words = torch.as_tensor(bytes_to_words(self.d, bucket=True), device=self.device)
-        offsets = index_frames(self.d, self.audio_offset, si)
+        words = self._upload()
+        with trace.span("decoder.index"):
+            offsets = index_frames(self.d, self.audio_offset, si)
         geom = DecoderGeometry(blocksize=si.min_blocksize, channels=si.channels,
                                bits_per_sample=si.bits_per_sample,
                                sample_rate=si.sample_rate,
                                max_lpc_order=self.max_lpc_order)
-        dec = build_frame_decoder(geom, self.device)
+        with trace.span("decoder.build"):
+            dec = build_frame_decoder(geom, self.device)
         # one big batch for long streams, small ones for short streams
         B = 512 if offsets is not None and len(offsets) >= 256 else self.batch_frames
         return words, offsets, dec, B
+
+    def _upload(self) -> torch.Tensor:
+        """The stream as words on the device."""
+        with trace.span("decoder.upload"):
+            return torch.as_tensor(bytes_to_words(self.d, bucket=True), device=self.device)
 
     def _decode_batch(self, dec, words, batch_off: np.ndarray, B: int):
         """Decode the frames at `batch_off` (padded to B): (pcm [nb, T, Ch]
         int32, end bytes [nb], overflow flags [nb]) on the host."""
         nb = len(batch_off)
-        if nb < B:
-            batch_off = np.concatenate([batch_off, np.repeat(batch_off[-1:], B - nb)])
-        pcm, ends, meta = dec(words, batch_off * 8)
-        return (pcm.cpu().numpy()[:nb].astype(np.int32, copy=False),
-                ends.cpu().numpy()[:nb] // 8,
-                meta["unary_overflow"].cpu().numpy()[:nb])
+        with trace.span("decoder.batch"):
+            if nb < B:
+                batch_off = np.concatenate([batch_off, np.repeat(batch_off[-1:], B - nb)])
+            pcm, ends, meta = dec(words, batch_off * 8)
+        with trace.span("decoder.copy_back"):
+            return (pcm.cpu().numpy()[:nb].astype(np.int32, copy=False),
+                    ends.cpu().numpy()[:nb] // 8,
+                    meta["unary_overflow"].cpu().numpy()[:nb])
 
     def iter_blocks(self, check_crc: bool = True, lookahead: int = 3):
         """Stream the decoded PCM as bounded-size int32 [n, channels] blocks.
@@ -350,7 +368,8 @@ class StreamDecoder:
                 block = block[: max(total_cap - emitted, 0)]
             emitted += len(block)
             if md5 is not None and len(block):
-                md5_fut = md5_pool.submit(md5.accumulate, block, si.bits_per_sample)
+                md5_fut = md5_pool.submit(_md5_update, md5, block, si.bits_per_sample,
+                                          trace.current())
             return block
 
         try:
@@ -374,18 +393,19 @@ class StreamDecoder:
                 if ovf.any():
                     # unary runs beyond the decoder's bit window (legal but
                     # pathological streams): those frames decode on the host
-                    if host is None:
-                        host = hd.HostDecoder(self.data_bytes, check_md5=False)
-                    for i in np.flatnonzero(ovf):
-                        try:
-                            fpcm, fi = host.decode_frame_at(int(batch_off[i]))
-                        except (hd.DecodeError, EOFError, ValueError, KeyError) as e:
-                            raise hd.DecodeError(
-                                f"at byte {int(batch_off[i])}: {e}") from e
-                        pcm[i] = fpcm.reshape(pcm[i].shape)
-                        ends_np[i] = fi.offset + fi.size
-                        host_frames += 1
-                        overflow_frames += 1
+                    with trace.span("decoder.host_frames"):
+                        if host is None:
+                            host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                        for i in np.flatnonzero(ovf):
+                            try:
+                                fpcm, fi = host.decode_frame_at(int(batch_off[i]))
+                            except (hd.DecodeError, EOFError, ValueError, KeyError) as e:
+                                raise hd.DecodeError(
+                                    f"at byte {int(batch_off[i])}: {e}") from e
+                            pcm[i] = fpcm.reshape(pcm[i].shape)
+                            ends_np[i] = fi.offset + fi.size
+                            host_frames += 1
+                            overflow_frames += 1
                 # frame k must end at or before frame k+1's start
                 ks = np.arange(s, s + nb)
                 lim = np.where(ks < nfr - 1, offsets[np.minimum(ks + 1, nfr - 1)],
@@ -404,13 +424,14 @@ class StreamDecoder:
                     yield block
             # the final partial frame (not in the index) decodes on the host
             if last_end < len(self.d) - 2:
-                host = hd.HostDecoder(self.data_bytes, check_md5=False)
-                try:
-                    tail_pcm, _fi = host.decode_frame_at(last_end)
-                except hd.CrcMismatchError as e:
-                    raise hd.DecodeError(f"at byte {last_end}: {e}") from e
-                except (hd.DecodeError, EOFError):
-                    tail_pcm = None  # trailing garbage/padding
+                with trace.span("decoder.host_frames"):
+                    host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                    try:
+                        tail_pcm, _fi = host.decode_frame_at(last_end)
+                    except hd.CrcMismatchError as e:
+                        raise hd.DecodeError(f"at byte {last_end}: {e}") from e
+                    except (hd.DecodeError, EOFError):
+                        tail_pcm = None  # trailing garbage/padding
                 if tail_pcm is not None:
                     frames += 1
                     host_frames += 1
@@ -418,9 +439,10 @@ class StreamDecoder:
                     if len(block):
                         yield block
             if md5 is not None:
-                if md5_fut is not None:
-                    md5_fut.result()  # barrier: all ordered updates done
-                md5_pool.shutdown()
+                with trace.span("decoder.md5_wait"):
+                    if md5_fut is not None:
+                        md5_fut.result()  # barrier: all ordered updates done
+                    md5_pool.shutdown()
                 if md5.digest() != si.md5sum:
                     raise hd.DecodeError("MD5 signature mismatch")
             self.decode_info = dict(frames=frames, path="device", errors=self.errors,
@@ -438,8 +460,9 @@ class StreamDecoder:
         if not self.continue_on_error:
             # strict mode: assemble from the streaming core (the same checks)
             parts = list(self.iter_blocks(check_crc))
-            pcm = (np.concatenate(parts, axis=0) if parts
-                   else np.zeros((0, si.channels), np.int32))
+            with trace.span("decoder.assemble"):
+                pcm = (np.concatenate(parts, axis=0) if parts
+                       else np.zeros((0, si.channels), np.int32))
             return pcm, dict(self.decode_info)
         words, offsets, dec, B = self._device_setup()
         if offsets is None:
@@ -453,25 +476,27 @@ class StreamDecoder:
             batch_off = offsets[s:s + B]
             pcm, ends_np, ovf = self._decode_batch(dec, words, batch_off, B)
             if ovf.any():
-                if host is None:
-                    host = hd.HostDecoder(self.data_bytes, check_md5=False)
-                for i in np.flatnonzero(ovf):
-                    overflow_frames += 1
-                    try:
-                        fpcm, fi = host.decode_frame_at(int(batch_off[i]))
-                        pcm[i] = fpcm.reshape(pcm[i].shape)
-                        ends_np[i] = fi.offset + fi.size
-                        host_frames += 1
-                    except (hd.DecodeError, EOFError, ValueError, KeyError) as e:
-                        # conceal: zero the block, trust the index for length
-                        self.errors.append(f"at byte {int(batch_off[i])}: {e}")
-                        pcm[i] = 0
-                        k = s + i
-                        ends_np[i] = offsets[k + 1] if k + 1 < nfr else len(self.d)
+                with trace.span("decoder.host_frames"):
+                    if host is None:
+                        host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                    for i in np.flatnonzero(ovf):
+                        overflow_frames += 1
+                        try:
+                            fpcm, fi = host.decode_frame_at(int(batch_off[i]))
+                            pcm[i] = fpcm.reshape(pcm[i].shape)
+                            ends_np[i] = fi.offset + fi.size
+                            host_frames += 1
+                        except (hd.DecodeError, EOFError, ValueError, KeyError) as e:
+                            # conceal: zero the block, trust the index for length
+                            self.errors.append(f"at byte {int(batch_off[i])}: {e}")
+                            pcm[i] = 0
+                            k = s + i
+                            ends_np[i] = offsets[k + 1] if k + 1 < nfr else len(self.d)
             ends_all[s:s + len(batch_off)] = ends_np
             pcm_parts.append(pcm.reshape(-1, si.channels))
-        pcm = (np.concatenate(pcm_parts, axis=0) if pcm_parts
-               else np.zeros((0, si.channels), np.int32))
+        with trace.span("decoder.assemble"):
+            pcm = (np.concatenate(pcm_parts, axis=0) if pcm_parts
+                   else np.zeros((0, si.channels), np.int32))
         if nfr:
             if np.any(ends_all[:-1] > offsets[1:]) or ends_all[-1] > len(self.d):
                 # index unreliable: redo the whole stream sequentially with
@@ -489,34 +514,34 @@ class StreamDecoder:
         tail_start = int(ends_all[-1]) if nfr else self.audio_offset
         frames = nfr
         if tail_start < len(self.d) - 2:
-            host = hd.HostDecoder(self.data_bytes, check_md5=False)
-            try:
-                tail_pcm, _fi = host.decode_frame_at(tail_start)
-                pcm = np.concatenate([pcm, tail_pcm], axis=0)
-                frames += 1
-                host_frames += 1
-            except hd.CrcMismatchError as e:
-                if e.frame.channels == si.channels:
-                    self.errors.append(f"at byte {tail_start}: {e}")
-                    pcm = np.concatenate(
-                        [pcm, np.zeros((e.frame.blocksize, si.channels), np.int32)],
-                        axis=0)
+            with trace.span("decoder.host_frames"):
+                host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                try:
+                    tail_pcm, _fi = host.decode_frame_at(tail_start)
+                    pcm = np.concatenate([pcm, tail_pcm], axis=0)
                     frames += 1
                     host_frames += 1
-            except (hd.DecodeError, EOFError):
-                pass  # trailing garbage/padding
+                except hd.CrcMismatchError as e:
+                    if e.frame.channels == si.channels:
+                        self.errors.append(f"at byte {tail_start}: {e}")
+                        pcm = np.concatenate(
+                            [pcm, np.zeros((e.frame.blocksize, si.channels), np.int32)],
+                            axis=0)
+                        frames += 1
+                        host_frames += 1
+                except (hd.DecodeError, EOFError):
+                    pass  # trailing garbage/padding
         if si.total_samples and len(pcm) > si.total_samples:
             pcm = pcm[: si.total_samples]
         if self.check_md5 and si.md5sum != b"\x00" * 16:
-            md5 = MD5Context()
-            md5.accumulate(pcm, si.bits_per_sample)
-            if md5.digest() != si.md5sum:
+            if not _md5_matches(pcm, si):
                 self.errors.append("MD5 signature mismatch")
         return pcm, dict(frames=frames, path="device", errors=self.errors,
                          host_frames=host_frames, overflow_frames=overflow_frames)
 
     def _check_crc16(self, offsets: np.ndarray, ends: np.ndarray) -> np.ndarray:
-        return check_frame_crc16(self.data_bytes, self.d, offsets, ends)
+        with trace.span("decoder.crc16"):
+            return check_frame_crc16(self.data_bytes, self.d, offsets, ends)
 
     # -- variable-blocksize streams (blocking_strategy=1) ---------------------
     # Foreign encoders only: neither this encoder nor the reference's emits
@@ -532,8 +557,9 @@ class StreamDecoder:
         if self.continue_on_error:
             # concealment and resync are the sequential path's
             return self._host_fallback("host")
-        words = torch.as_tensor(bytes_to_words(self.d, bucket=True), device=self.device)
-        idx = index_frames_variable(self.d, self.audio_offset, si)
+        words = self._upload()
+        with trace.span("decoder.index"):
+            idx = index_frames_variable(self.d, self.audio_offset, si)
         if idx is None:
             return self._host_fallback("host")
         offsets, bss, snos, exts = idx
@@ -556,35 +582,40 @@ class StreamDecoder:
                                    sample_rate=si.sample_rate,
                                    max_lpc_order=self.max_lpc_order,
                                    dynamic_header_ext=True)
-            dec = build_frame_decoder(geom, self.device)
+            with trace.span("decoder.build"):
+                dec = build_frame_decoder(geom, self.device)
             B = min(self.batch_frames, len(sel))
             for s in range(0, len(sel), B):
                 g = sel[s:s + B]
                 nb = len(g)
-                gg = np.concatenate([g, np.repeat(g[-1:], B - nb)]) if nb < B else g
-                gp, ge, gm = dec(words, offsets[gg] * 8, exts[gg])
-                gp = gp.cpu().numpy()[:nb].astype(np.int32)
-                ge_np = ge.cpu().numpy()[:nb] // 8
-                ovf = gm["unary_overflow"].cpu().numpy()[:nb]
-                for j in np.flatnonzero(ovf):
-                    if host is None:
-                        host = hd.HostDecoder(self.data_bytes, check_md5=False)
-                    fpcm, fi = host.decode_frame_at(int(offsets[g[j]]))
-                    gp[j] = fpcm.reshape(gp[j].shape)
-                    ge_np[j] = fi.offset + fi.size
-                    host_frames += 1
-                    overflow_frames += 1
+                with trace.span("decoder.batch"):
+                    gg = np.concatenate([g, np.repeat(g[-1:], B - nb)]) if nb < B else g
+                    gp, ge, gm = dec(words, offsets[gg] * 8, exts[gg])
+                with trace.span("decoder.copy_back"):
+                    gp = gp.cpu().numpy()[:nb].astype(np.int32)
+                    ge_np = ge.cpu().numpy()[:nb] // 8
+                    ovf = gm["unary_overflow"].cpu().numpy()[:nb]
+                with trace.span("decoder.host_frames"):
+                    for j in np.flatnonzero(ovf):
+                        if host is None:
+                            host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                        fpcm, fi = host.decode_frame_at(int(offsets[g[j]]))
+                        gp[j] = fpcm.reshape(gp[j].shape)
+                        ge_np[j] = fi.offset + fi.size
+                        host_frames += 1
+                        overflow_frames += 1
                 for j in range(nb):
                     k = g[j]
                     pcm[snos[k]: snos[k] + bs] = gp[j].reshape(-1, si.channels)
                     ends_all[k] = ge_np[j]
-        for k in host_idx:
-            if host is None:
-                host = hd.HostDecoder(self.data_bytes, check_md5=False)
-            fpcm, fi = host.decode_frame_at(int(offsets[k]))
-            pcm[snos[k]: snos[k] + bss[k]] = fpcm
-            ends_all[k] = fi.offset + fi.size
-            host_frames += 1
+        with trace.span("decoder.host_frames"):
+            for k in host_idx:
+                if host is None:
+                    host = hd.HostDecoder(self.data_bytes, check_md5=False)
+                fpcm, fi = host.decode_frame_at(int(offsets[k]))
+                pcm[snos[k]: snos[k] + bss[k]] = fpcm
+                ends_all[k] = fi.offset + fi.size
+                host_frames += 1
         if nfr:
             if np.any(ends_all[:-1] > offsets[1:]) or ends_all[-1] > len(self.d):
                 raise StreamDecodeError("frame length overrun — corrupt stream?")
@@ -596,9 +627,7 @@ class StreamDecoder:
         if si.total_samples and len(pcm) > si.total_samples:
             pcm = pcm[: si.total_samples]
         if self.check_md5 and si.md5sum != b"\x00" * 16:
-            md5 = MD5Context()
-            md5.accumulate(pcm, si.bits_per_sample)
-            if md5.digest() != si.md5sum:
+            if not _md5_matches(pcm, si):
                 raise hd.DecodeError("MD5 signature mismatch")
         return pcm, dict(frames=nfr, path="device-variable", errors=self.errors,
                          host_frames=host_frames, overflow_frames=overflow_frames)
@@ -609,8 +638,24 @@ def decode_bytes_device(data: bytes, check_md5: bool = True, batch_frames: int =
                         device: str | torch.device | None = None):
     """Decode a whole FLAC stream on `device` (None: CUDA). Returns (pcm
     [n, channels] int32, streaminfo, info dict)."""
-    dec = StreamDecoder(data, check_md5=check_md5, batch_frames=batch_frames,
-                        max_lpc_order=max_lpc_order,
-                        continue_on_error=continue_on_error, device=device)
-    pcm, info = dec.decode_all()
-    return pcm, dec.streaminfo, info
+    with trace.span("decoder.call", stream=trace.new_stream()):
+        dec = StreamDecoder(data, check_md5=check_md5, batch_frames=batch_frames,
+                            max_lpc_order=max_lpc_order,
+                            continue_on_error=continue_on_error, device=device)
+        pcm, info = dec.decode_all()
+        return pcm, dec.streaminfo, info
+
+
+def _md5_update(md5: MD5Context, block: np.ndarray, bits: int, cause: tuple | None) -> None:
+    """One ordered MD5 update on the worker thread, a span caused by the
+    span that submitted it."""
+    with trace.span("decoder.md5", parent=cause):
+        md5.accumulate(block, bits)
+
+
+def _md5_matches(pcm: np.ndarray, si: StreamInfo) -> bool:
+    """Whether the assembled PCM's MD5 is STREAMINFO's."""
+    with trace.span("decoder.md5"):
+        md5 = MD5Context()
+        md5.accumulate(pcm, si.bits_per_sample)
+        return md5.digest() == si.md5sum

@@ -15,17 +15,24 @@ The final partial frame takes the second route in both. With `verify=True`
 every batch of full frames is decoded where it was packed (decode.
 frame_decoder's verifier) and compared with its input before it is
 written; the final partial frame is not verified, as in flac_tpu.
+
+Each StreamEncoder is one request of flac_tpu_torch.trace, from its
+construction to finish(); its stages are the spans `encoder.open`,
+`encoder.process`, `encoder.buffer`, `encoder.md5`, `encoder.batch` (one a
+step call), `encoder.copy_back`, `encoder.verify`, `encoder.emit`,
+`encoder.finish`, `encoder.tail` and `encoder.streaminfo`.
 """
 
 from __future__ import annotations
 
 import io
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
 from flac_tpu_torch import constants as C
+from flac_tpu_torch import trace
 from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import packer
@@ -55,7 +62,6 @@ class EncodeStats:
     bytes_written: int = 0
     min_framesize: int = (1 << 31) - 1
     max_framesize: int = 0
-    assignments: list = field(default_factory=list)
     batches: int = 0  # frame-encoder calls, the final partial frame included
 
 
@@ -72,70 +78,74 @@ class StreamEncoder:
                  batch_frames: int = 64, total_samples_estimate: int = 0,
                  do_md5: bool = True, seekpoints: list[int] | None = None,
                  verify: bool = False, device: str | torch.device | None = None):
-        self.cfg = config.resolve()
-        self.device = resolve_device(device)
-        # the word fill is chosen once (FLAC_TPU_PACKER), for every build
-        self._packer_impl = resolve_packer_impl(None, self.device)
-        self.out = out
-        self.batch_frames = batch_frames
-        self.do_md5 = do_md5
-        self.verify = verify
-        self._md5 = MD5Context()
-        self._buf = np.zeros((0, self.cfg.channels), np.int32)
-        self._frame_no = 0
-        # the dense route compacts each batch on the device, so that only
-        # the compressed bytes cross to the host
-        self._dense = use_dense_packer(self.device)
-        build = build_frame_encoder_dense if self._dense else build_frame_encoder
-        self._encode = build(self.cfg, device=self.device,
-                             packer_impl=self._packer_impl)
-        self._finish_encoders: dict[int, object] = {}
-        self.stats = EncodeStats()
-        self._finished = False
+        # one request from here to finish(): every span of this stream
+        # carries its id
+        self._stream = trace.new_stream()
+        with trace.span("encoder.open", stream=self._stream):
+            self.cfg = config.resolve()
+            self.device = resolve_device(device)
+            # the word fill is chosen once (FLAC_TPU_PACKER), for every build
+            self._packer_impl = resolve_packer_impl(None, self.device)
+            self.out = out
+            self.batch_frames = batch_frames
+            self.do_md5 = do_md5
+            self.verify = verify
+            self._md5 = MD5Context()
+            self._buf = np.zeros((0, self.cfg.channels), np.int32)
+            self._frame_no = 0
+            # the dense route compacts each batch on the device, so that only
+            # the compressed bytes cross to the host
+            self._dense = use_dense_packer(self.device)
+            build = build_frame_encoder_dense if self._dense else build_frame_encoder
+            self._encode = build(self.cfg, device=self.device,
+                                 packer_impl=self._packer_impl)
+            self._finish_encoders: dict[int, object] = {}
+            self.stats = EncodeStats()
+            self._finished = False
 
-        # loose mid-side reuses assignment state across a cycle; batches must
-        # start at cycle boundaries (frame_encoder handles in-batch reuse)
-        if self.cfg.loose_mid_side:
-            q = self.cfg.loose_mid_side_frames
-            self.batch_frames = max(q, (batch_frames // q) * q)
+            # loose mid-side reuses assignment state across a cycle; batches must
+            # start at cycle boundaries (frame_encoder handles in-batch reuse)
+            if self.cfg.loose_mid_side:
+                q = self.cfg.loose_mid_side_frames
+                self.batch_frames = max(q, (batch_frames // q) * q)
 
-        # --- stream header -------------------------------------------------
-        self._streaminfo = StreamInfo(
-            min_blocksize=self.cfg.blocksize, max_blocksize=self.cfg.blocksize,
-            min_framesize=0, max_framesize=0, sample_rate=self.cfg.sample_rate,
-            channels=self.cfg.channels, bits_per_sample=self.cfg.bits_per_sample,
-            total_samples=total_samples_estimate, md5sum=b"\x00" * 16)
-        blocks: list[MetadataBlock] = [self._streaminfo]
-        self._seektable: SeekTable | None = None
-        user_blocks = list(metadata or [])
-        if seekpoints:
-            self._seektable = SeekTable(points=[
-                SeekPoint(sp, 0, 0) if sp != SeekPoint.PLACEHOLDER
-                else SeekPoint(SeekPoint.PLACEHOLDER, 0, 0) for sp in seekpoints])
-            blocks.append(self._seektable)
-        for b in user_blocks:
-            if isinstance(b, SeekTable) and self._seektable is None:
-                self._seektable = b
-            if isinstance(b, VorbisComment):
-                # the stream encoder stamps its own vendor string on every
-                # VORBIS_COMMENT it writes (stream_encoder_framing.c:53-68)
-                b = replace(b, vendor_string=VENDOR_STRING)
-            blocks.append(b)
-        # libFLAC always emits a VORBIS_COMMENT with its vendor string when the
-        # caller didn't supply one (init_stream_internal_, stream_encoder.c:1068)
-        if not any(isinstance(b, VorbisComment) for b in blocks):
-            blocks.insert(1, VorbisComment(vendor_string=VENDOR_STRING))
-        self._blocks = blocks
-        out.write(C.STREAM_SYNC_STRING)
-        self._metadata_offset = 4
-        header = serialize_metadata(blocks)
-        out.write(header)
-        self._audio_offset = 4 + len(header)
-        self._pending_seekpoints = (
-            sorted(p.sample_number for p in self._seektable.points
-                   if not p.is_placeholder) if self._seektable else [])
-        self._seek_fill: dict[int, tuple[int, int]] = {}
-        self._verifier = make_verifier(self.cfg, self.device) if verify else None
+            # --- stream header -------------------------------------------------
+            self._streaminfo = StreamInfo(
+                min_blocksize=self.cfg.blocksize, max_blocksize=self.cfg.blocksize,
+                min_framesize=0, max_framesize=0, sample_rate=self.cfg.sample_rate,
+                channels=self.cfg.channels, bits_per_sample=self.cfg.bits_per_sample,
+                total_samples=total_samples_estimate, md5sum=b"\x00" * 16)
+            blocks: list[MetadataBlock] = [self._streaminfo]
+            self._seektable: SeekTable | None = None
+            user_blocks = list(metadata or [])
+            if seekpoints:
+                self._seektable = SeekTable(points=[
+                    SeekPoint(sp, 0, 0) if sp != SeekPoint.PLACEHOLDER
+                    else SeekPoint(SeekPoint.PLACEHOLDER, 0, 0) for sp in seekpoints])
+                blocks.append(self._seektable)
+            for b in user_blocks:
+                if isinstance(b, SeekTable) and self._seektable is None:
+                    self._seektable = b
+                if isinstance(b, VorbisComment):
+                    # the stream encoder stamps its own vendor string on every
+                    # VORBIS_COMMENT it writes (stream_encoder_framing.c:53-68)
+                    b = replace(b, vendor_string=VENDOR_STRING)
+                blocks.append(b)
+            # libFLAC always emits a VORBIS_COMMENT with its vendor string when the
+            # caller didn't supply one (init_stream_internal_, stream_encoder.c:1068)
+            if not any(isinstance(b, VorbisComment) for b in blocks):
+                blocks.insert(1, VorbisComment(vendor_string=VENDOR_STRING))
+            self._blocks = blocks
+            out.write(C.STREAM_SYNC_STRING)
+            self._metadata_offset = 4
+            header = serialize_metadata(blocks)
+            out.write(header)
+            self._audio_offset = 4 + len(header)
+            self._pending_seekpoints = (
+                sorted(p.sample_number for p in self._seektable.points
+                       if not p.is_placeholder) if self._seektable else [])
+            self._seek_fill: dict[int, tuple[int, int]] = {}
+            self._verifier = make_verifier(self.cfg, self.device) if verify else None
 
     # -- processing ---------------------------------------------------------
 
@@ -144,54 +154,78 @@ class StreamEncoder:
         if samples.ndim == 1:
             samples = samples[:, None]
         assert samples.shape[1] == self.cfg.channels
-        self._buf = np.concatenate([self._buf, samples.astype(np.int32)], axis=0)
-        bs = self.cfg.blocksize
-        # keep one sample of lookahead so the final (possibly partial) block is
-        # always flushed by finish(), mirroring the reference's OVERREAD_
-        # (stream_encoder.c:515)
-        while self._buf.shape[0] > bs * self.batch_frames:
-            chunk = self._buf[: bs * self.batch_frames]
-            self._buf = self._buf[bs * self.batch_frames:]
-            self._encode_full_frames(chunk)
-        nfull = self._buf.shape[0] // bs
-        if self._buf.shape[0] % bs == 0 and nfull > 0:
-            nfull -= 1  # retain the last full block until finish()
-        if nfull > 0:
-            chunk = self._buf[: bs * nfull]
-            self._buf = self._buf[bs * nfull:]
-            self._encode_full_frames(chunk)
+        with trace.span("encoder.process", stream=self._stream):
+            for chunk in self._take_full_frames(samples):
+                self._encode_full_frames(chunk)
+
+    def _take_full_frames(self, samples: np.ndarray) -> list[np.ndarray]:
+        """Append `samples` to the buffer and take from it the chunks of
+        full frames that can be encoded now."""
+        bs, step = self.cfg.blocksize, self.cfg.blocksize * self.batch_frames
+        chunks = []
+        with trace.span("encoder.buffer"):
+            self._buf = np.concatenate([self._buf, samples.astype(np.int32)], axis=0)
+            # keep one sample of lookahead so the final (possibly partial)
+            # block is always flushed by finish(), mirroring the reference's
+            # OVERREAD_ (stream_encoder.c:515)
+            while self._buf.shape[0] > step:
+                chunks.append(self._buf[:step])
+                self._buf = self._buf[step:]
+            nfull = self._buf.shape[0] // bs
+            if self._buf.shape[0] % bs == 0 and nfull > 0:
+                nfull -= 1  # retain the last full block until finish()
+            if nfull > 0:
+                chunks.append(self._buf[: bs * nfull])
+                self._buf = self._buf[bs * nfull:]
+        return chunks
 
     def _encode_full_frames(self, chunk: np.ndarray) -> None:
         bs = self.cfg.blocksize
         nframes = chunk.shape[0] // bs
         frames = chunk.reshape(nframes, bs, self.cfg.channels)
         if self.do_md5:
-            self._md5.accumulate(chunk, self.cfg.bits_per_sample)
+            with trace.span("encoder.md5"):
+                self._md5.accumulate(chunk, self.cfg.bits_per_sample)
         B = self.batch_frames
         for start in range(0, nframes, B):
-            batch = frames[start : start + B]
-            nb = batch.shape[0]
-            if nb < B:  # pad to the static batch size; padded outputs dropped
-                batch = np.concatenate(
-                    [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
-            fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
-            if self._dense:
-                stream, total, total_bits, _info = self._encode(batch, fnos)
-                self.stats.batches += 1
+            with trace.span("encoder.batch"):
+                self._encode_batch(frames[start : start + B])
+
+    def _encode_batch(self, batch: np.ndarray) -> None:
+        """One step call over a batch of full frames (padded to the static
+        batch size, the padded outputs dropped), its copy back, verify and
+        emit."""
+        B = self.batch_frames
+        nb = batch.shape[0]
+        if nb < B:
+            batch = np.concatenate(
+                [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
+        fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
+        if self._dense:
+            stream, total, total_bits, _info = self._encode(batch, fnos)
+            self.stats.batches += 1
+            with trace.span("encoder.copy_back"):
                 total_bits = total_bits.cpu().numpy()
-                if self.verify:
+            if self.verify:
+                with trace.span("encoder.verify"):
                     self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch)
+            with trace.span("encoder.copy_back"):
                 total = int(total)
                 host = stream[: (total + 3) // 4].cpu().numpy()
+            with trace.span("encoder.emit"):
                 self._emit_dense(host, total, total_bits, nb)
-            else:
-                words, total_bits, _info = self._encode(batch, fnos)
-                self.stats.batches += 1
-                if self.verify:
+        else:
+            words, total_bits, _info = self._encode(batch, fnos)
+            self.stats.batches += 1
+            if self.verify:
+                with trace.span("encoder.verify"):
                     self._run_verify(words, nb, batch)
-                self._emit(words.cpu().numpy(), total_bits.cpu().numpy(), nb)
-            self._frame_no += nb
-            self.stats.samples += nb * bs
+            with trace.span("encoder.copy_back"):
+                words, total_bits = words.cpu().numpy(), total_bits.cpu().numpy()
+            with trace.span("encoder.emit"):
+                self._emit(words, total_bits, nb)
+        self._frame_no += nb
+        self.stats.samples += nb * self.cfg.blocksize
 
     def _frame_written(self, i: int, n: int) -> None:
         """Stats and the seektable fill-in of the batch's frame i, of n
@@ -277,33 +311,47 @@ class StreamEncoder:
 
     def finish(self) -> StreamInfo:
         assert not self._finished
+        with trace.span("encoder.finish", stream=self._stream):
+            bs = self.cfg.blocksize
+            # flush whole frames first, then the final partial frame
+            nfull = self._buf.shape[0] // bs
+            if nfull:
+                chunk = self._buf[: bs * nfull]
+                self._buf = self._buf[bs * nfull:]
+                self._encode_full_frames(chunk)
+            if self._buf.shape[0]:
+                tail = self._buf
+                self._buf = self._buf[:0]
+                if self.do_md5:
+                    with trace.span("encoder.md5"):
+                        self._md5.accumulate(tail, self.cfg.bits_per_sample)
+                with trace.span("encoder.tail"):
+                    self._encode_tail(tail)
+            self._finished = True
+            with trace.span("encoder.streaminfo"):
+                return self._rewrite_metadata()
+
+    def _encode_tail(self, tail: np.ndarray) -> None:
+        """The final partial frame, by a step built for its length."""
+        rem = tail.shape[0]
+        enc = self._finish_encoders.get(rem)
+        if enc is None:
+            enc = build_frame_encoder(self.cfg, blocksize=rem, device=self.device,
+                                      packer_impl=self._packer_impl)
+            self._finish_encoders[rem] = enc
+        words, total_bits, _info = enc(tail[None, :, :],
+                                       np.asarray([self._frame_no], np.int64))
+        self.stats.batches += 1
+        with trace.span("encoder.copy_back"):
+            words, total_bits = words[0].cpu().numpy(), int(total_bits[0])
+        with trace.span("encoder.emit"):
+            self._emit_partial(words, total_bits)
+        self._frame_no += 1
+        self.stats.samples += rem
+
+    def _rewrite_metadata(self) -> StreamInfo:
+        """Rewrite STREAMINFO (+ seektable) with the final statistics."""
         bs = self.cfg.blocksize
-        # flush whole frames first, then the final partial frame
-        nfull = self._buf.shape[0] // bs
-        if nfull:
-            chunk = self._buf[: bs * nfull]
-            self._buf = self._buf[bs * nfull:]
-            self._encode_full_frames(chunk)
-        rem = self._buf.shape[0]
-        if rem:
-            tail = self._buf
-            self._buf = self._buf[:0]
-            if self.do_md5:
-                self._md5.accumulate(tail, self.cfg.bits_per_sample)
-            enc = self._finish_encoders.get(rem)
-            if enc is None:
-                enc = build_frame_encoder(self.cfg, blocksize=rem,
-                                          device=self.device,
-                                          packer_impl=self._packer_impl)
-                self._finish_encoders[rem] = enc
-            words, total_bits, _info = enc(
-                tail[None, :, :], np.asarray([self._frame_no], np.int64))
-            self.stats.batches += 1
-            self._emit_partial(words[0].cpu().numpy(), int(total_bits[0]))
-            self._frame_no += 1
-            self.stats.samples += rem
-        self._finished = True
-        # rewrite STREAMINFO (+ seektable) with final statistics
         si = self._streaminfo
         si.min_framesize = 0 if self.stats.frames == 0 else self.stats.min_framesize
         si.max_framesize = self.stats.max_framesize

@@ -40,7 +40,7 @@ import torch
 from flac_tpu_torch import constants as C
 from flac_tpu_torch import crc as crc_mod
 from flac_tpu_torch import graphs
-from flac_tpu_torch import rice
+from flac_tpu_torch import rice, trace
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.dsp import fixed as dsp_fixed
 from flac_tpu_torch.dsp import lpc as dsp_lpc
@@ -308,7 +308,8 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
 @functools.lru_cache(maxsize=64)
 def _graphed_full(cfg: EncoderConfig, blocksize: int | None, device: torch.device,
                   packer_impl: str, wide_int64: bool) -> graphs.GraphedStep:
-    full = _build_frame_encoder(cfg, blocksize, device, packer_impl, wide_int64)[0]
+    with trace.span("step.build"):  # runs on a miss of the cache only
+        full = _build_frame_encoder(cfg, blocksize, device, packer_impl, wide_int64)[0]
     return graphs.GraphedStep(full, _step_name("encode", cfg, blocksize, packer_impl),
                               device)
 
@@ -351,7 +352,8 @@ def build_frame_encoder_dense(cfg: EncoderConfig,
 @functools.lru_cache(maxsize=64)
 def _graphed_dense(cfg: EncoderConfig, device: torch.device, packer_impl: str,
                    wide_int64: bool) -> graphs.GraphedStep:
-    full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64)[0]
+    with trace.span("step.build"):
+        full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64)[0]
 
     def encode_dense(pcm, frame_numbers):
         words, total_bits, info = full(pcm, frame_numbers)

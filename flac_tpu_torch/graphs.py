@@ -31,6 +31,10 @@ on every later replay, so every count stays one a call. `eager_calls`,
 holds a record of each capture (step, shapes, pool bytes, capture time).
 At most MAX_GRAPHS graphs live in a process: capturing another releases the
 one replayed least recently, and its step captures again at its next call.
+
+Each call is one span of flac_tpu_torch.trace: `step.eager` (every call on
+the CPU), `step.capture` or `step.replay`, the last two with a child
+`step.copy_in` around the copy of the inputs into the static buffers.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import traceback
 
 import torch
 
+from flac_tpu_torch import trace
 from flac_tpu_torch.kernels import KernelError
 
 MAX_GRAPHS = 8
@@ -130,17 +135,21 @@ class GraphedStep:
     def __call__(self, *args):
         global eager_calls
         if self.device.type != "cuda":
-            return self.fn(*args)
+            with trace.span("step.eager"):
+                return self.fn(*args)
         inputs = tuple(torch.as_tensor(a) for a in args)
         key = tuple((tuple(t.shape), t.dtype) for t in inputs)
         if key not in self._shapes:
             self._shapes[key] = None
             eager_calls += 1
-            return self.fn(*inputs)
+            with trace.span("step.eager"):
+                return self.fn(*inputs)
         g = self._shapes[key]
         if g is None:
-            return self._capture(key, inputs)
-        return self._replay(key, g, inputs)
+            with trace.span("step.capture"):
+                return self._capture(key, inputs)
+        with trace.span("step.replay"):
+            return self._replay(key, g, inputs)
 
     def _capture(self, key, inputs):
         global captures
@@ -150,8 +159,9 @@ class GraphedStep:
         with torch.cuda.device(self.device):
             static = tuple(torch.empty(t.shape, dtype=t.dtype, device=self.device)
                            for t in inputs)
-            for s, t in zip(static, inputs):
-                s.copy_(t)
+            with trace.span("step.copy_in"):
+                for s, t in zip(static, inputs):
+                    s.copy_(t)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
@@ -178,8 +188,9 @@ class GraphedStep:
 
     def _replay(self, key, g: _Graph, inputs):
         global replays
-        for s, t in zip(g.inputs, inputs):
-            s.copy_(t)
+        with trace.span("step.copy_in"):
+            for s, t in zip(g.inputs, inputs):
+                s.copy_(t)
         out = self._run(g)
         _set_counters([v + d for v, d in zip(_read_counters(), g.deltas)])
         _live.move_to_end((id(self), key))
