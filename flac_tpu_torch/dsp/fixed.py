@@ -23,12 +23,13 @@ _STENCILS = np.array([
 _LN2 = math.log(2.0)
 
 
-def fixed_errors(x: torch.Tensor, wide: bool
+def fixed_errors(x: torch.Tensor, wide: bool, n: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Total absolute error of each fixed order and the best-order choice
     (FLAC__fixed_compute_best_predictor, fixed.c:224): errors summed over
-    data indices [MAX_FIXED_ORDER, T). In the narrow path the accumulators
-    are uint32 and wrap (fixed.c:234), on purpose.
+    data indices [MAX_FIXED_ORDER, T), or [MAX_FIXED_ORDER, n) where a
+    length n (a device tensor) is given. In the narrow path the
+    accumulators are uint32 and wrap (fixed.c:234), on purpose.
 
     x: [..., T] int32. Returns (total_errors [..., 5] int64, best_order
     [...] int32).
@@ -39,8 +40,11 @@ def fixed_errors(x: torch.Tensor, wide: bool
     d2 = torch.diff(x64, 2)[..., 2:]
     d3 = torch.diff(x64, 3)[..., 1:]
     d4 = torch.diff(x64, 4)
-    errs = torch.stack([d.abs().sum(dim=-1) for d in (d0, d1, d2, d3, d4)],
-                       dim=-1)
+    ds = (d0, d1, d2, d3, d4)
+    if n is not None:
+        keep = torch.arange(MAX_FIXED_ORDER, x.shape[-1], device=x.device) < n
+        ds = [torch.where(keep, d, 0) for d in ds]
+    errs = torch.stack([d.abs().sum(dim=-1) for d in ds], dim=-1)
     if not wide:
         errs = errs & 0xFFFFFFFF  # uint32 wraparound of the narrow accumulators
     # strict-< cascade (fixed.c:245-254): ties go to the higher order
@@ -54,11 +58,13 @@ def fixed_errors(x: torch.Tensor, wide: bool
     return errs, order.to(torch.int32)
 
 
-def residual_bits_per_sample(total_errors: torch.Tensor, n: int) -> torch.Tensor:
+def residual_bits_per_sample(total_errors: torch.Tensor,
+                             n: int | torch.Tensor) -> torch.Tensor:
     """log2(ln2 * err / n) in float64, 0 when err == 0, returned as float32
-    (fixed.c:266-270)."""
+    (fixed.c:266-270). n may be a device tensor."""
     e = total_errors.to(torch.float64)
-    bps = torch.log(_LN2 * e / float(n)) / _LN2
+    n = n.to(torch.float64) if isinstance(n, torch.Tensor) else float(n)
+    bps = torch.log(_LN2 * e / n) / _LN2
     return torch.where(total_errors > 0, bps, 0.0).to(torch.float32)
 
 

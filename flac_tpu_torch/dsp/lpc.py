@@ -75,6 +75,46 @@ def autocorrelation(windowed: torch.Tensor, maxlag: int) -> torch.Tensor:
     return torch.stack(cols, dim=-1)
 
 
+def autocorrelation_placed(windowed: torch.Tensor, maxlag: int,
+                           n: torch.Tensor) -> torch.Tensor:
+    """`autocorrelation(windowed[..., :n], maxlag)` bit for bit, computed in
+    the fixed-size buffer windowed [..., T] (float32, zero from n on), so
+    that one CUDA graph serves every length. n: int64 tensor broadcastable
+    to windowed's batch shape, with n - maxlag > _XLA_TREE_WINDOW: every
+    lag takes the tree of 32-wide windows (_lag_product_sum).
+
+    Each lag j's products are placed, level by level, where that tree puts
+    them for its length n - j: at low pad lo = (padded - m) // 2 inside
+    the buffer, zeros elsewhere, so every window adds the same values in
+    the same order. A lag whose level count is reached passes through the
+    later levels unchanged, and the last sum adds only its m values.
+    """
+    W = _XLA_TREE_WINDOW
+    T = windowed.shape[-1]
+    p = torch.stack([torch.nn.functional.pad(windowed[..., : T - j] * windowed[..., j:],
+                                             (0, j)) for j in range(maxlag + 1)],
+                    dim=-2)                                   # [..., maxlag+1, T]
+    m = n[..., None] - torch.arange(maxlag + 1, device=windowed.device)
+    size = T
+    while size > W:
+        padded = -(-size // W) * W
+        nxt = max(padded // W, W)
+        tree = m > W  # lags that take a level of windows here
+        lo = (-(-m // W) * W - m) // 2
+        src = torch.arange(padded, device=windowed.device) - lo[..., None]
+        ok = (src >= 0) & (src < m[..., None])
+        g = torch.gather(p, -1, src.clamp(0, size - 1).expand(p.shape[:-1] + (padded,)))
+        s = _sum_in_order(torch.where(ok, g, 0.0).reshape(p.shape[:-1] + (padded // W, W)))
+        s = torch.nn.functional.pad(s, (0, nxt - padded // W))
+        p = torch.where(tree[..., None], s, p[..., :nxt])
+        m = torch.where(tree, -(-m // W), m)
+        size = nxt
+    acc = p[..., 0]
+    for i in range(1, size):
+        acc = torch.where(i < m, acc + p[..., i], acc)
+    return acc
+
+
 def levinson(autoc: torch.Tensor, max_order: int
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Levinson-Durbin over all orders 1..max_order in float64 (lpc.c:112-154).
@@ -126,6 +166,11 @@ def expected_bits_per_residual_sample(lpc_error: torch.Tensor,
         error_scale = 0.5 * (_LN2 * _LN2) / total_samples.to(torch.float64)
     else:
         error_scale = 0.5 * (_LN2 * _LN2) / float(total_samples)
+    return _bits_at_scale(lpc_error, error_scale)
+
+
+def _bits_at_scale(lpc_error: torch.Tensor, error_scale: torch.Tensor | float
+                   ) -> torch.Tensor:
     bps = 0.5 * torch.log(error_scale * lpc_error) / _LN2
     # 1e32 as a float64 tensor: torch.where of two Python floats would round
     # it to the default float32, where flac_tpu (x64) keeps float64
@@ -135,16 +180,24 @@ def expected_bits_per_residual_sample(lpc_error: torch.Tensor,
 
 
 def compute_best_order(errors: torch.Tensor, valid: torch.Tensor,
-                       total_samples: int,
+                       total_samples: int | torch.Tensor,
                        overhead_bits_per_order: torch.Tensor) -> torch.Tensor:
     """FLAC__lpc_compute_best_order (lpc.c:1353-1390): strict-< argmin of the
     estimated subframe bits over orders 1..L; ties keep the lower order
     (torch.argmin, like jnp.argmin, returns the first minimum).
+    `total_samples` may be a device tensor: its error scale is then the
+    same correctly rounded float64 quotient as the number's.
     Returns the best order in 1..L as int32."""
     L = errors.shape[-1]
     orders = torch.arange(1, L + 1, dtype=torch.float64, device=errors.device)
-    bits = (expected_bits_per_residual_sample(errors, float(total_samples))
-            * (total_samples - orders)
+    if isinstance(total_samples, torch.Tensor):
+        total_samples = total_samples.to(torch.float64)
+        # a tensor quotient, not `number / tensor` (a reciprocal and a product)
+        rbps = _bits_at_scale(errors, torch.full_like(total_samples, 0.5 * (_LN2 * _LN2))
+                              / total_samples)
+    else:
+        rbps = expected_bits_per_residual_sample(errors, float(total_samples))
+    bits = (rbps * (total_samples - orders)
             + orders * overhead_bits_per_order[..., None].to(torch.float64))
     bits = torch.where(valid, bits, math.inf)
     return (torch.argmin(bits, dim=-1) + 1).to(torch.int32)
@@ -204,11 +257,12 @@ def quantize_coefficients(lp_coeff: torch.Tensor, order: torch.Tensor,
 
 def lpc_residual(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
                  shift: torch.Tensor, max_order: int,
-                 narrow: bool = False) -> torch.Tensor:
+                 narrow: bool = False, n: torch.Tensor | None = None) -> torch.Tensor:
     """residual[t] = x[t] - (sum_{j=1..order} qlp[j-1] * x[t-j] >> shift).
 
     x: [..., T] int32; qlp: [..., max_order]; order/shift: [...]. Entries
-    t < order are zeroed. narrow=True keeps the accumulator in int32, exact
+    t < order are zeroed, and t >= n where a length n (a device tensor)
+    is given. narrow=True keeps the accumulator in int32, exact
     whenever bps + qlp precision + ilog2(order) <= 32 (stream_encoder.c:3592;
     the caller checks this statically); otherwise int64.
     """
@@ -222,12 +276,16 @@ def lpc_residual(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
         acc = acc + torch.where((j <= order)[..., None], coef[..., None] * lag, 0)
     pred = acc >> shift[..., None].to(dt)
     t = torch.arange(T, device=x.device)
-    res = torch.where(t >= order[..., None], xw - pred, 0)
+    valid = t >= order[..., None]
+    if n is not None:
+        valid = valid & (t < n)
+    res = torch.where(valid, xw - pred, 0)
     return res.to(torch.int32)
 
 
 def lpc_residual_limbs(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
-                       shift: torch.Tensor, max_order: int
+                       shift: torch.Tensor, max_order: int,
+                       n: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The wide-datapath residual from two int32 limbs, flac_tpu's
     `lpc_residual_limbs` (lpc.c:531 is the reference's _wide path).
@@ -243,7 +301,8 @@ def lpc_residual_limbs(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
     (effective bps <= 25, precision <= 15, order <= 16). Returns (res [...,
     T] int32, ovf [...] bool): `ovf` marks candidates whose s < 12
     prediction left int32 (|H| >= 2^min(19+s, 30) at a valid sample); the
-    encoder masks them out, so it must be flac_tpu's exactly.
+    encoder masks them out, so it must be flac_tpu's exactly. Where a
+    length n (a device tensor) is given, samples from n on are not valid.
     """
     T = x.shape[-1]
     x = x.to(torch.int32)
@@ -263,7 +322,10 @@ def lpc_residual_limbs(x: torch.Tensor, qlp: torch.Tensor, order: torch.Tensor,
     pred_ge = H >> torch.clamp(s - 12, min=0)
     pred_lt = (H << torch.clamp(12 - s, min=0)) + (r >> torch.clamp(s, max=12))
     pred = torch.where(s >= 12, pred_ge, pred_lt)
-    valid = torch.arange(T, device=x.device) >= order[..., None]
+    t = torch.arange(T, device=x.device)
+    valid = t >= order[..., None]
+    if n is not None:
+        valid = valid & (t < n)
     res = torch.where(valid, x - pred, 0)
     lim = torch.ones_like(s) << torch.clamp(19 + s, max=30)
     ovf = ((s < 12) & (H.abs() >= lim) & valid).any(dim=-1)

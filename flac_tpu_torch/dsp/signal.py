@@ -32,9 +32,13 @@ def _popcount32(v: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
-def is_constant(x: torch.Tensor) -> torch.Tensor:
-    """True where all samples in the frame equal the first sample."""
-    return (x == x[..., :1]).all(dim=-1)
+def is_constant(x: torch.Tensor, n: torch.Tensor | None = None) -> torch.Tensor:
+    """True where all samples in the frame equal the first sample: the
+    first n of them where a length n (a device tensor) is given."""
+    same = x == x[..., :1]
+    if n is not None:
+        same = same | (torch.arange(x.shape[-1], device=x.device) >= n)
+    return same.all(dim=-1)
 
 
 def mid_side(left: torch.Tensor, right: torch.Tensor

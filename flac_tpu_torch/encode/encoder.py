@@ -11,10 +11,14 @@ FLAC_TPU_PACKER=pallas) the dense one, where each batch of full frames is
 compacted on the device into one word stream, of which only the valid
 prefix comes back and is written in one piece (`_emit_dense`); on the CPU
 the padded word matrix comes back and is written frame by frame (`_emit`).
-The final partial frame takes the second route in both. With `verify=True`
-every batch of full frames is decoded where it was packed (decode.
-frame_decoder's verifier) and compared with its input before it is
-written; the final partial frame is not verified, as in flac_tpu.
+The final partial frame takes the second route in both, through
+frame_encoder.encode_tail: one length-generic step, replayed from its third
+call on, for every length at which the step's static choices are those of
+the full blocksize (at -5 16-bit, every length from 41 samples), and a step
+built for the length below that. With `verify=True` every batch of full
+frames is decoded where it was packed (decode.frame_decoder's verifier)
+and compared with its input before it is written; the final partial
+frame is not verified, as in flac_tpu.
 
 Each StreamEncoder is one request of flac_tpu_torch.trace, from its
 construction to finish(); its stages are the spans `encoder.open`,
@@ -37,7 +41,7 @@ from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import packer
 from flac_tpu_torch.encode.frame_encoder import (
-    EncoderConfig, build_frame_encoder, build_frame_encoder_dense,
+    EncoderConfig, build_frame_encoder, build_frame_encoder_dense, encode_tail,
     resolve_packer_impl, use_dense_packer)
 from flac_tpu_torch.md5 import MD5Context
 from flac_tpu_torch.metadata import (
@@ -99,7 +103,6 @@ class StreamEncoder:
             build = build_frame_encoder_dense if self._dense else build_frame_encoder
             self._encode = build(self.cfg, device=self.device,
                                  packer_impl=self._packer_impl)
-            self._finish_encoders: dict[int, object] = {}
             self.stats = EncodeStats()
             self._finished = False
 
@@ -332,15 +335,11 @@ class StreamEncoder:
                 return self._rewrite_metadata()
 
     def _encode_tail(self, tail: np.ndarray) -> None:
-        """The final partial frame, by a step built for its length."""
+        """The final partial frame, by frame_encoder.encode_tail: the
+        length-generic tail step, or a step built for its length."""
         rem = tail.shape[0]
-        enc = self._finish_encoders.get(rem)
-        if enc is None:
-            enc = build_frame_encoder(self.cfg, blocksize=rem, device=self.device,
-                                      packer_impl=self._packer_impl)
-            self._finish_encoders[rem] = enc
-        words, total_bits, _info = enc(tail[None, :, :],
-                                       np.asarray([self._frame_no], np.int64))
+        words, total_bits, _info = encode_tail(self.cfg, tail, self._frame_no,
+                                               self.device, self._packer_impl)
         self.stats.batches += 1
         with trace.span("encoder.copy_back"):
             words, total_bits = words[0].cpu().numpy(), int(total_bits[0])

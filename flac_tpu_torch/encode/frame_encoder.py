@@ -18,8 +18,11 @@ bps + log2(T) + 1 > 30, through two int32 limbs where they provably fit
 (the 24-bit family) and int64 otherwise; the fractional final block too.
 `build_frame_encoder_dense` adds the dense compaction: the batch's
 frames back to back in one word stream on the device (packer's
-compact_stream_words; the CUDA kernel on a GPU). The device follows the
-tensors;
+compact_stream_words; the CUDA kernel on a GPU). `encode_tail` encodes a
+stream's final partial frame: by `build_tail_encoder`'s step, whose
+length is data in a buffer of the full blocksize, where every static
+choice of the step is the same at that length (`tail_takes_generic_step`),
+else by a step built for the length. The device follows the tensors;
 `build_frame_encoder` takes `device=None`, meaning CUDA (see device.py).
 On CUDA both return the step as one CUDA graph a batch shape
 (graphs.GraphedStep: eager at a shape's first call, captured at its second,
@@ -296,7 +299,8 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
     fn is a graphs.GraphedStep: one CUDA graph a batch shape, replayed from
     the shape's third call on, with fresh outputs each call.
 
-    `blocksize` overrides cfg.blocksize for the stream's final partial frame;
+    `blocksize` overrides cfg.blocksize for a final partial frame that
+    encode_tail does not give the length-generic step;
     `packer_impl` selects the word fill (see resolve_packer_impl).
     FLAC_TPU_WIDE=int64 is read here too (see _build_frame_encoder).
     """
@@ -364,6 +368,76 @@ def _graphed_dense(cfg: EncoderConfig, device: torch.device, packer_impl: str,
                                                        packer_impl), device)
 
 
+# final partial frames encoded by the length-generic tail step, and by a
+# step for their own length (the fallback of tail_takes_generic_step)
+tail_steps = 0
+tail_builds = 0
+
+
+def build_tail_encoder(cfg: EncoderConfig, device: str | torch.device | None = None,
+                       packer_impl: str | None = None):
+    """The length-generic step for a stream's final partial frame, one a
+    configuration: the frame's length is data, not shape, so that every
+    eligible length (tail_takes_generic_step) shares one CUDA graph. Returns
+    fn(pcm [1, cfg.blocksize, Ch] int (the frame, zero from n on),
+    frame_numbers [1], lens [4] int64 (n, and the header's blocksize code,
+    extension bits and extension value at n), bank [A, cfg.blocksize]
+    float32 (make_window_bank at n, zero from n on; A = 0 without LPC)) ->
+    the (words [1, maxwords], total_bits [1], info) of build_frame_encoder's
+    step for n, maxwords that of the full blocksize. `tail_inputs` makes
+    the last three."""
+    device = resolve_device(device)
+    return _graphed_tail(cfg, device, resolve_packer_impl(packer_impl, device),
+                         _wide_int64())
+
+
+@functools.lru_cache(maxsize=64)
+def _graphed_tail(cfg: EncoderConfig, device: torch.device, packer_impl: str,
+                  wide_int64: bool) -> graphs.GraphedStep:
+    with trace.span("step.build"):
+        full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64,
+                                    generic=True)[0]
+    return graphs.GraphedStep(full, _step_name("tail encode", cfg, None, packer_impl),
+                              device)
+
+
+def tail_inputs(cfg: EncoderConfig, tail: np.ndarray, frame_number: int
+                ) -> tuple[np.ndarray, ...]:
+    """build_tail_encoder's inputs for the final partial frame `tail` [n,
+    Ch], made on the host (microseconds)."""
+    n, T = tail.shape[0], cfg.blocksize
+    pcm = np.zeros((1, T, cfg.channels), np.int32)
+    pcm[0, :n] = tail
+    bs_code, bs_ext_bits, bs_ext_val = _header_static_codes(cfg, n)[:3]
+    lens = np.asarray([n, bs_code, bs_ext_bits, bs_ext_val], np.int64)
+    bank = np.zeros((0, T), np.float32)
+    if _length_plan(cfg, T, _wide_int64()).do_lpc:
+        bank = np.zeros((len(cfg.apodizations), T), np.float32)
+        bank[:, :n] = dsp_windows.make_window_bank(cfg.apodizations, n)
+    return pcm, np.asarray([frame_number], np.int64), lens, bank
+
+
+def encode_tail(cfg: EncoderConfig, tail: np.ndarray, frame_number: int,
+                device: str | torch.device | None = None,
+                packer_impl: str | None = None):
+    """Encode a stream's final partial frame, tail [n, Ch] with 0 < n <
+    cfg.blocksize, as frame `frame_number`. Returns (words [1, W] int32,
+    total_bits [1] int32, info), on the device. The length decides the
+    route: the length-generic step where tail_takes_generic_step holds
+    (counted in tail_steps), else a step built for n (tail_builds)."""
+    global tail_steps, tail_builds
+    device = resolve_device(device)
+    packer_impl = resolve_packer_impl(packer_impl, device)
+    wide_int64 = _wide_int64()
+    if tail_takes_generic_step(cfg, tail.shape[0], wide_int64):
+        tail_steps += 1
+        step = _graphed_tail(cfg, device, packer_impl, wide_int64)
+        return step(*tail_inputs(cfg, tail, frame_number))
+    tail_builds += 1
+    step = _graphed_full(cfg, tail.shape[0], device, packer_impl, wide_int64)
+    return step(tail[None], np.asarray([frame_number], np.int64))
+
+
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
                               device: str | torch.device | None = None,
                               packer_impl: str | None = None):
@@ -384,37 +458,94 @@ def _wide_int64() -> bool:
     return os.environ.get("FLAC_TPU_WIDE") == "int64"
 
 
-@functools.lru_cache(maxsize=64)
-def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
-                         device: torch.device, packer_impl: str,
-                         wide_int64: bool):
-    T = blocksize or cfg.blocksize
-    is_fractional = T != cfg.blocksize
-    Ch = cfg.channels
-    bps_stream = cfg.bits_per_sample
-    use_ms = cfg.do_mid_side and Ch == 2
-    K = 4 if use_ms else Ch
-    limit = cfg.rice_parameter_limit
-    max_fixed = min(C.MAX_FIXED_ORDER, max(T - 1, 0))
+@dataclass(frozen=True)
+class _LengthPlan:
+    """Every static choice of the step that follows from the frame length T."""
+
+    min_fixed: bool    # the fixed/constant/LPC section's blocksize >= 4 gate
+    max_fixed: int
+    maxord: int
+    do_lpc: bool
+    use_wide: bool
+    wide_limbs: bool
+    narrow_t: bool
+    narrow_lpc: bool
+
+
+def _length_plan(cfg: EncoderConfig, T: int, wide_int64: bool) -> _LengthPlan:
+    use_ms = cfg.do_mid_side and cfg.channels == 2
     maxord = min(cfg.max_lpc_order, T - 1)
-    # the whole fixed/constant/LPC section is gated on blocksize >= 4
-    # (process_subframe_, stream_encoder.c:3206)
-    do_lpc = maxord > 0 and T >= C.MAX_FIXED_ORDER
-    A = len(cfg.apodizations) if do_lpc else 0
-    exhaustive = cfg.do_exhaustive_model_search
-    use_wide = bps_stream + (T.bit_length() - 1) + 1 > 30  # stream_encoder.c:888
+    use_wide = cfg.bits_per_sample + (T.bit_length() - 1) + 1 > 30  # stream_encoder.c:888
     # the two-int32-limb LPC residual (dsp.lpc.lpc_residual_limbs) where its
     # limb sums provably fit int32 (the 24-bit family); the [.., T] planes
     # then stay int32 and only the reductions widen
-    bps_worst = bps_stream + (1 if use_ms else 0)
+    bps_worst = cfg.bits_per_sample + (1 if use_ms else 0)
     pmax = C.MAX_QLP_COEFF_PRECISION
     wide_limbs = (use_wide and bps_worst <= 25 and maxord >= 1
                   and maxord * (1 << (pmax + max(bps_worst - 14, 0))) < (1 << 31)
                   and maxord * (1 << (pmax + 11)) < (1 << 31)
                   and not wide_int64)
-    # [.., T]-sized elementwise math stays int32 when the whole datapath is
-    # 32-bit or the limb path bounds the values
-    narrow_t = (not use_wide) or wide_limbs
+    # int32 accumulation of the LPC prediction is exact iff bps + precision
+    # + ilog2(order) <= 32 (stream_encoder.c:3592), with the static worst
+    # case. Under -p the per-candidate caps (stream_encoder.c:3341-3345,
+    # :3583) keep that sum <= 32 whenever bps_eff <= 17.
+    if cfg.do_qlp_coeff_prec_search:
+        narrow_lpc = not use_wide and bps_worst <= 17
+    else:
+        narrow_lpc = (not use_wide
+                      and (bps_worst + cfg.qlp_coeff_precision
+                           + (maxord.bit_length() - 1) <= 32))
+    return _LengthPlan(
+        min_fixed=T >= C.MAX_FIXED_ORDER,
+        max_fixed=min(C.MAX_FIXED_ORDER, max(T - 1, 0)),
+        maxord=maxord,
+        # the whole fixed/constant/LPC section is gated on blocksize >= 4
+        # (process_subframe_, stream_encoder.c:3206)
+        do_lpc=maxord > 0 and T >= C.MAX_FIXED_ORDER,
+        use_wide=use_wide, wide_limbs=wide_limbs,
+        # [.., T]-sized elementwise math stays int32 when the whole datapath
+        # is 32-bit or the limb path bounds the values
+        narrow_t=(not use_wide) or wide_limbs,
+        narrow_lpc=narrow_lpc)
+
+
+def tail_takes_generic_step(cfg: EncoderConfig, n: int,
+                            wide_int64: bool | None = None) -> bool:
+    """Whether a final partial frame of n samples is encoded by the
+    length-generic tail step (build_tail_encoder): where every static
+    choice of the step has at n its value at cfg.blocksize, and, with LPC
+    on, every autocorrelation lag is longer than one XLA tree window
+    (dsp.lpc.autocorrelation_placed). Otherwise a step is built for n."""
+    if wide_int64 is None:
+        wide_int64 = _wide_int64()
+    if not 0 < n < cfg.blocksize:
+        return False
+    plan = _length_plan(cfg, cfg.blocksize, wide_int64)
+    return (_length_plan(cfg, n, wide_int64) == plan
+            and (not plan.do_lpc or n - plan.maxord > dsp_lpc._XLA_TREE_WINDOW))
+
+
+@functools.lru_cache(maxsize=64)
+def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
+                         device: torch.device, packer_impl: str,
+                         wide_int64: bool, generic: bool = False):
+    """The step's functions for frames of `blocksize` samples (None: the
+    configuration's). generic=True builds the length-generic tail step:
+    frames of cfg.blocksize samples of which the first n are the frame,
+    n and its header codes in `lens` and its window bank in `bank`, extra
+    arguments of every function (see build_tail_encoder)."""
+    T = blocksize or cfg.blocksize
+    is_fractional = generic or T != cfg.blocksize
+    Ch = cfg.channels
+    bps_stream = cfg.bits_per_sample
+    use_ms = cfg.do_mid_side and Ch == 2
+    K = 4 if use_ms else Ch
+    limit = cfg.rice_parameter_limit
+    plan = _length_plan(cfg, T, wide_int64)
+    max_fixed, maxord, do_lpc = plan.max_fixed, plan.maxord, plan.do_lpc
+    A = len(cfg.apodizations) if do_lpc else 0
+    exhaustive = cfg.do_exhaustive_model_search
+    use_wide, wide_limbs, narrow_t = plan.use_wide, plan.wide_limbs, plan.narrow_t
     if is_fractional:
         max_po = 0
     else:
@@ -430,12 +561,14 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
     maxwords = maxbytes // 4
     (bs_code, bs_ext_bits, bs_ext_val, sr_code, sr_ext_bits, sr_ext_val,
      bps_code) = _header_static_codes(cfg, T)
+    if generic:  # the blocksize code and its extension come in `lens`
+        bs_code = 0
 
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     window_bank = (dev(dsp_windows.make_window_bank(cfg.apodizations, T))
-                   if do_lpc else None)
+                   if do_lpc and not generic else None)
     crc8_table = dev(packer.xpow_table_np(1024, crc_mod.CRC8_POLY, 8))
     _wtbl, _winv = packer.crc16_word_tables(maxwords)
     crc16_wtbl, crc16_winv = dev(_wtbl), dev(_winv)
@@ -459,13 +592,23 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
     def mask_to(v, nbits):
         return v & ((one64 << torch.clamp(nbits.to(_I64), max=63)) - 1)
 
-    def encode(pcm, frame_numbers):
+    def encode(pcm, frame_numbers, lens=None, bank=None):
         """Candidate search + field assembly. pcm: [B, T, Ch] int;
         frame_numbers: [B] int. Returns (values [B, F] int64, nbits [B, F]
-        int32, info dict); the frame's bit count is nbits.sum(1)."""
+        int32, info dict); the frame's bit count is nbits.sum(1). The
+        generic step takes lens and bank too (see build_tail_encoder)."""
         pcm = dev(pcm).to(_I32)
         frame_numbers = dev(frame_numbers).to(_I64)
         B = pcm.shape[0]
+        if generic:
+            # the frame's length: every sample from nlen on is padding, and
+            # every mask `inside` keeps it out of the frame's sums and fields
+            lens = dev(lens).to(_I64)
+            nlen = ntail = lens[0]
+            inside = tvec < nlen
+            bank = dev(bank)
+        else:
+            nlen, ntail, bank = T, None, window_bank
 
         # --- candidate channels -------------------------------------------
         if use_ms:
@@ -480,11 +623,11 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         pre = (8 + w).to(_I64)  # zero-pad+type+wasted-flag+unary
 
         # --- verbatim / constant baselines --------------------------------
-        verbatim_bits = pre + T * bps_eff.to(_I64)
-        if cfg.disable_verbatim_subframes and T >= C.MAX_FIXED_ORDER:
+        verbatim_bits = pre + nlen * bps_eff.to(_I64)
+        if cfg.disable_verbatim_subframes and plan.min_fixed:
             verbatim_bits = torch.full_like(verbatim_bits, INF_BITS)
-        is_const = dsp_signal.is_constant(x)
-        const_ok = (T >= C.MAX_FIXED_ORDER) and not cfg.disable_constant_subframes
+        is_const = dsp_signal.is_constant(x, ntail)
+        const_ok = plan.min_fixed and not cfg.disable_constant_subframes
         const_bits = torch.where(is_const & const_ok, pre + bps_eff, INF_BITS)
 
         cand_bits = [verbatim_bits, const_bits]
@@ -492,21 +635,25 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         model_meta = []
 
         # --- fixed predictors ---------------------------------------------
-        if T >= C.MAX_FIXED_ORDER and not (cfg.disable_fixed_subframes and cfg.max_lpc_order > 0):
-            errs, guess_fixed = dsp_fixed.fixed_errors(x, use_wide)
-            rbps_fixed = dsp_fixed.residual_bits_per_sample(errs, T - C.MAX_FIXED_ORDER)
+        if plan.min_fixed and not (cfg.disable_fixed_subframes and cfg.max_lpc_order > 0):
+            errs, guess_fixed = dsp_fixed.fixed_errors(x, use_wide, ntail)
+            rbps_fixed = dsp_fixed.residual_bits_per_sample(errs, nlen - C.MAX_FIXED_ORDER)
             res_all = dsp_fixed.fixed_residuals_all_orders(x)     # [B, K, 5, T]
+            if generic:
+                res_all = torch.where(inside, res_all, 0)
             orders5 = torch.arange(5, dtype=_I32, device=device)
             folded = rice.fold_residual(res_all, narrow=narrow_t)
             absres = _abs_plane(res_all, narrow_t)
             validt = tvec[None, None, None, :] >= orders5[None, None, :, None]
+            if generic:
+                validt = validt & inside
             absres = torch.where(validt, absres, 0)
             folded = torch.where(validt, folded, 0)
             sugg = _suggested_param(rbps_fixed, limit)
             rs = rice.rice_search(absres, folded, orders5.expand(errs.shape).to(_I32),
                                   sugg, T, min_po, max_po, limit,
                                   do_escape=cfg.do_escape_coding,
-                                  compute_exact=False)
+                                  compute_exact=False, n=ntail)
             bits = (pre[..., None] + orders5.to(_I64) * bps_eff[..., None]
                     + rs.approx_bits)
             active = orders5[None, None, :] <= max_fixed
@@ -526,8 +673,11 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
 
         # --- LPC -----------------------------------------------------------
         if do_lpc:
-            xw = x.to(_F32)[:, :, None, :] * window_bank[None, None, :, :]
-            autoc = dsp_lpc.autocorrelation(xw, maxord)           # [B,K,A,maxord+1]
+            xw = x.to(_F32)[:, :, None, :] * bank[None, None, :, :]
+            if generic:
+                autoc = dsp_lpc.autocorrelation_placed(xw, maxord, nlen)
+            else:
+                autoc = dsp_lpc.autocorrelation(xw, maxord)       # [B,K,A,maxord+1]
             autoc_ok = autoc[..., 0] != 0.0
             coeffs, lerr, lvalid = dsp_lpc.levinson(autoc, maxord)
             prec0 = cfg.qlp_coeff_precision
@@ -535,7 +685,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                         + (C.MIN_QLP_COEFF_PRECISION if cfg.do_qlp_coeff_prec_search
                            else prec0)).to(_F64)                  # [B,K,1]
             guess_lpc = dsp_lpc.compute_best_order(
-                lerr, lvalid, T, overhead.expand(lerr.shape[:-1]))
+                lerr, lvalid, nlen, overhead.expand(lerr.shape[:-1]))
             if exhaustive:  # every order 1..maxord of every window
                 orders = torch.arange(1, maxord + 1, dtype=_I32, device=device
                                       ).expand(B, K, A, maxord)
@@ -546,25 +696,15 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
             err_o = torch.gather(lerr, -1, idx)
             valid_o = torch.gather(lvalid, -1, idx)
             rbps_lpc = dsp_lpc.expected_bits_per_residual_sample(
-                err_o, (T - orders).to(_F64))
+                err_o, (nlen - orders).to(_F64))
             sugg = _suggested_param(rbps_lpc, limit)
             ilog2_o = _ilog2(orders)
             coeff_rows = torch.gather(                            # [B,K,A,O,maxord]
                 coeffs, -2, idx[..., None].expand(idx.shape + (maxord,)))
-            # int32 accumulation is exact iff bps + precision + ilog2(order)
-            # <= 32 (stream_encoder.c:3592), with the static worst case. Under
-            # -p the per-candidate caps (stream_encoder.c:3341-3345, :3583)
-            # keep that sum <= 32 whenever bps_eff <= 17.
-            if cfg.do_qlp_coeff_prec_search:
-                narrow_lpc = not use_wide and bps_worst <= 17
-            else:
-                narrow_lpc = (not use_wide
-                              and (bps_worst + cfg.qlp_coeff_precision
-                                   + (maxord.bit_length() - 1) <= 32))
             bps_b = bps_eff[..., None, None]
             base_active = (autoc_ok[..., None] & valid_o & ~is_const[..., None, None]
                            & (rbps_lpc < bps_b.to(_F64))
-                           & (orders <= T - 1))
+                           & (orders <= nlen - 1))
 
             def eval_precision(prec_arr):
                 """Quantize, residual and Rice search at one precision per
@@ -577,12 +717,12 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     coeff_rows, orders, prec_c, maxord)
                 if wide_limbs:
                     res_p, ovf_p = dsp_lpc.lpc_residual_limbs(
-                        x[:, :, None, None, :], qlp_p, orders, shift_p, maxord)
+                        x[:, :, None, None, :], qlp_p, orders, shift_p, maxord, n=ntail)
                     qok_p = qok_p & ~ovf_p
                 else:
                     res_p = dsp_lpc.lpc_residual(
                         x[:, :, None, None, :], qlp_p, orders, shift_p, maxord,
-                        narrow=narrow_lpc)                        # [B,K,A,O,T]
+                        narrow=plan.narrow_lpc, n=ntail)          # [B,K,A,O,T]
                 folded_p = rice.fold_residual(res_p, narrow=narrow_t)
                 absres_p = _abs_plane(res_p, narrow_t)
                 validt = tvec >= orders[..., None]
@@ -591,7 +731,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 rs_p = rice.rice_search(absres_p, folded_p, orders, sugg, T,
                                         min_po, max_po, limit,
                                         do_escape=cfg.do_escape_coding,
-                                        compute_exact=False)
+                                        compute_exact=False, n=ntail)
                 bits_p = (pre[..., None, None] + 9
                           + orders.to(_I64) * (prec_c + bps_b).to(_I64)
                           + rs_p.approx_bits)
@@ -653,7 +793,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         # fall back to verbatim if everything is disabled/INF (stream_encoder.c:3391)
         fallback = best_bits_approx >= INF_BITS
         best_idx = torch.where(fallback, 0, best_idx)
-        best_bits_approx = torch.where(fallback, pre + T * bps_eff.to(_I64),
+        best_bits_approx = torch.where(fallback, pre + nlen * bps_eff.to(_I64),
                                        best_bits_approx)
         midx = best_idx - 2  # < 0 for verbatim/constant (no model selected)
 
@@ -692,11 +832,11 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         # exact residual-coding bits, one [B,K,T] pass for the selection
         sel_folded = rice.fold_residual(sel_res, narrow=narrow_t)
         sel_exact_res = rice.rice_exact_bits(sel_folded, sel_params, sel_raws,
-                                             sel_order, sel_po, T, max_po)
+                                             sel_order, sel_po, T, max_po, n=ntail)
         is_lpc_sel = sel_type == C.SUBFRAME_TYPE_LPC
         hdr_extra = torch.where(is_lpc_sel, 9, 0).to(_I64)
         body = torch.where(
-            sel_type == C.SUBFRAME_TYPE_VERBATIM, T * bps_eff.to(_I64),
+            sel_type == C.SUBFRAME_TYPE_VERBATIM, nlen * bps_eff.to(_I64),
             torch.where(sel_type == C.SUBFRAME_TYPE_CONSTANT, bps_eff.to(_I64),
                         sel_order.to(_I64)
                         * (bps_eff + torch.where(is_lpc_sel, sel_prec, 0)).to(_I64)
@@ -745,9 +885,15 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         # header: one combined 32-bit field, UTF-8 number, extensions, CRC-8
         f0 = ((C.FRAME_HEADER_SYNC << 18) | (bs_code << 12) | (sr_code << 8)
               | (bps_code << 1))
-        add(full_col(f0) | (ca_code.to(_I64)[:, None] << 4), full_col(32))
-        add(*_utf8_fields(frame_numbers, utf8_thresholds))
-        add(full_col(bs_ext_val), full_col(bs_ext_bits))
+        if generic:  # the blocksize code and extension of length nlen
+            add(full_col(f0) | (lens[1] << 12) | (ca_code.to(_I64)[:, None] << 4),
+                full_col(32))
+            add(*_utf8_fields(frame_numbers, utf8_thresholds))
+            add(lens[3].expand(B, 1), lens[2].expand(B, 1))
+        else:
+            add(full_col(f0) | (ca_code.to(_I64)[:, None] << 4), full_col(32))
+            add(*_utf8_fields(frame_numbers, utf8_thresholds))
+            add(full_col(bs_ext_val), full_col(bs_ext_bits))
         add(full_col(sr_ext_val), full_col(sr_ext_bits))
         crc8_slot = sum(v.shape[1] for v in values_blocks)  # the CRC-8 field
         add(full_col(0), full_col(8))
@@ -844,11 +990,13 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                 cw_v_coded = torch.where(esc_t, mask_to(c_res.to(_I64), raw_t),
                                          cw_v_coded)
             coded_t = is_coded[:, None] & (tvec[None, :] >= c_order[:, None])
+            verb_t = is_verb[:, None]
+            if generic:
+                coded_t, verb_t = coded_t & inside, verb_t & inside
             cw_n = torch.where(coded_t, cw_n_coded,
-                               torch.where(is_verb[:, None], c_bps[:, None], 0))
+                               torch.where(verb_t, c_bps[:, None], 0))
             cw_v = torch.where(coded_t, cw_v_coded,
-                               torch.where(is_verb[:, None],
-                                           mask_to(c_x, c_bps[:, None]), 0))
+                               torch.where(verb_t, mask_to(c_x, c_bps[:, None]), 0))
             inter_v = torch.cat([param_v[:, :, None], cw_v.reshape(B, nleaf, leafsz)],
                                 dim=2).reshape(B, nleaf * (1 + leafsz))
             inter_n = torch.cat([param_n[:, :, None].to(_I32),
@@ -887,8 +1035,8 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
         return packer.pack_frames_kernel(values, nbits, maxwords, crc16_wtbl,
                                          crc16_winv, merged)
 
-    def full(pcm, frame_numbers):
-        values, nbits, info = encode(pcm, frame_numbers)
+    def full(pcm, frame_numbers, *per_length):
+        values, nbits, info = encode(pcm, frame_numbers, *per_length)
         words, total_bits = pack(values, nbits)
         return words, total_bits, dict(info, frame_bits=total_bits)
 

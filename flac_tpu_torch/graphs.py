@@ -13,8 +13,12 @@ dsp/lpc.py keeps in XLA:CPU's order). On a CPU device every call runs
 `jax.jit` retraces a new shape):
 
 - call 1 runs `fn` eagerly: it builds the kernels, fills their caches and
-  primes the allocator, and a step called once at a shape (the final
-  partial frame's) is never captured;
+  primes the allocator, and a step called once at a shape is never
+  captured: a final partial frame's step built for its own length, which
+  encode.frame_encoder.encode_tail keeps for the few short lengths that
+  the length-generic tail step does not take (that step has one shape for
+  every other length, so it captures at the second such tail a process
+  encodes);
 - call 2 copies the inputs into static device buffers, captures `fn` on
   them into a graph with a private memory pool, and replays it once;
 - every later call copies its inputs in and replays.

@@ -46,7 +46,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode.frame_encoder import (
-    EncoderConfig, build_frame_encoder, build_frame_encoder_parts)
+    EncoderConfig, build_frame_encoder_parts, encode_tail)
 
 collective_calls = 0
 collective_bytes = 0
@@ -290,9 +290,7 @@ def encode_corpus_sharded(pcm, cfg: EncoderConfig, mesh: DeviceMesh | None = Non
         min_fs = min(min_fs, int(nbytes[:nb].min()))
         max_fs = max(max_fs, int(nbytes[:nb].max()))
     if rem:
-        tail_enc = build_frame_encoder(cfg, blocksize=rem, device=device)
-        words, total_bits, _ = tail_enc(pcm[None, nfull * bs :, :],
-                                        np.asarray([nfull], np.int64))
+        words, total_bits, _ = encode_tail(cfg, pcm[nfull * bs :], nfull, device)
         tail = words[0].cpu().numpy().view(np.uint32).astype(">u4").tobytes()[
             : int(total_bits[0]) // 8]
         payload += tail

@@ -47,7 +47,8 @@ def fold_residual(res: torch.Tensor, narrow: bool = False) -> torch.Tensor:
 def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
                 suggested: torch.Tensor, blocksize: int, min_po: int,
                 max_po: int, rice_limit: int, do_escape: bool = False,
-                compute_exact: bool = True) -> RiceSearchResult:
+                compute_exact: bool = True, n: torch.Tensor | None = None
+                ) -> RiceSearchResult:
     """Search partition orders [min_po, max_po] for the best Rice coding.
 
     absres: [..., T] |residual| (zeros at t < order), int32 or int64;
@@ -56,6 +57,10 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
     Descending order sweep with strict <, so ties keep the higher order
     (stream_encoder.c:3726). do_escape also weighs an escaped partition of
     raw residuals against each Rice partition; escape wins ties.
+
+    n, a device tensor, is the length of a partial frame held in a buffer
+    of `blocksize` samples (zeros from n on): one partition (max_po 0) of
+    n samples.
     """
     T = blocksize
     batch = folded.shape[:-1]
@@ -92,8 +97,11 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
         nparts = 1 << po
         ps = T >> po
         sums = pm(sums_by_po[po])                         # [nparts, N]
-        n_p = torch.full((nparts, N), ps, dtype=torch.int64, device=sums.device)
-        n_p[0] -= order_f.to(torch.int64)
+        if n is None:
+            n_p = torch.full((nparts, N), ps, dtype=torch.int64, device=sums.device)
+            n_p[0] -= order_f.to(torch.int64)
+        else:
+            n_p = (n - order_f.to(torch.int64))[None, :]
         if po == 0:
             k = sugg_f[None, :].to(torch.int32)
         else:
@@ -127,7 +135,7 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
                  + part_bits.sum(dim=0))                  # [N]
         # partition order invalid when a full partition is <= predictor order
         # (format.c:548; set_partitioned_rice_ returns false, :4010)
-        invalid = (ps <= order_f) if po > 0 else (order_f >= T)
+        invalid = (ps <= order_f) if po > 0 else (order_f >= (T if n is None else n))
         total = torch.where(invalid, 2 ** 62, total)
         k_po = k.repeat_interleave(nleaf // nparts, dim=0).to(torch.int32)
         if best_total is None:
@@ -155,7 +163,7 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
     if compute_exact:
         exact = rice_exact_bits(folded, params_leaf,
                                 raw_leaf if do_escape else None, order,
-                                best_po, blocksize, max_po)
+                                best_po, blocksize, max_po, n=n)
     else:
         # the frame encoder computes exact bits after selection
         exact = torch.zeros_like(best_total)
@@ -167,13 +175,14 @@ def rice_search(absres: torch.Tensor, folded: torch.Tensor, order: torch.Tensor,
 def rice_exact_bits(folded: torch.Tensor, params_leaf: torch.Tensor,
                     raw_leaf: torch.Tensor | None, order: torch.Tensor,
                     partition_order: torch.Tensor, blocksize: int,
-                    max_po: int) -> torch.Tensor:
+                    max_po: int, n: torch.Tensor | None = None) -> torch.Tensor:
     """Exact emitted residual-coding bits for the given parameters: the sum
     over valid samples of (u >> k) + 1 + k (the raw width in an escaped
     partition, where raw_leaf > 0) plus the partition parameter fields and
     a 5-bit raw length per escaped partition. folded: [..., T] (int32 bit
-    patterns, read as uint32 with uint32 wraparound, or int64). Returns
-    [...] int64."""
+    patterns, read as uint32 with uint32 wraparound, or int64); samples
+    from n on do not count where a length n (a device tensor) is given.
+    Returns [...] int64."""
     T = blocksize
     ps_leaf = T >> max_po
     narrow = folded.dtype == torch.int32
@@ -181,6 +190,8 @@ def rice_exact_bits(folded: torch.Tensor, params_leaf: torch.Tensor,
     t = torch.arange(T, device=folded.device)
     k_samp = params_leaf.repeat_interleave(ps_leaf, dim=-1).to(torch.int64)
     valid = t >= order[..., None]
+    if n is not None:
+        valid = valid & (t < n)
     cw = (fu >> k_samp) + 1 + k_samp
     if narrow:
         cw = cw & 0xFFFFFFFF

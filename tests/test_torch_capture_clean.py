@@ -11,7 +11,8 @@ or reads a device value on the host (`.item()`, `bool()`, `int()`,
 One call of the step, its inputs already tensors, runs under a
 `TorchDispatchMode` that records them, at four configurations whose paths
 differ: level 5 16-bit stereo, level 8 24-bit (the two-limb wide residual),
-`-p` with escape coding, and 32-bit with mid-side off (the int64 path).
+`-p` with escape coding, and 32-bit with mid-side off (the int64 path);
+and so does the length-generic tail step (`build_tail_encoder`) at each.
 """
 
 from __future__ import annotations
@@ -81,3 +82,22 @@ def test_encode_step_uploads_and_reads_nothing(name):
     assert rec.ops > 1000  # the recorder saw the step
     assert torch.equal(words, want[0]) and torch.equal(total_bits, want[1])
     assert int(total_bits.min()) > 0 and int((total_bits % 8).max()) == 0
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_tail_step_uploads_and_reads_nothing(name):
+    kw = dict(CONFIGS[name])
+    level, bits, rate, bs = kw.pop("level"), kw.pop("bits"), kw.pop("rate"), kw.pop("blocksize")
+    cfg = t_fe.EncoderConfig.from_level(level, 2, bits, rate, blocksize=bs, **kw)
+    n = bs - 57
+    assert t_fe.tail_takes_generic_step(cfg, n)
+    step = t_fe.build_tail_encoder(cfg, device="cpu")
+    args = [torch.as_tensor(a) for a in
+            t_fe.tail_inputs(cfg, _pcm(cfg, seed=level + bits).numpy()[-1, :n], 1003)]
+    want = step(*args)
+    with _Recorder() as rec:
+        words, total_bits, info = step(*args)
+    assert rec.seen == {}, f"{name}: {rec.seen} in {rec.ops} ops"
+    assert rec.ops > 1000
+    assert torch.equal(words, want[0]) and torch.equal(total_bits, want[1])
+    assert int(total_bits[0]) > 0 and int(total_bits[0]) % 8 == 0

@@ -67,6 +67,7 @@ def encoded():
     """The stream encoded with the recorder on and off, and the spans."""
     pcm = _pcm()
     frame_encoder._graphed_full.cache_clear()  # a build at open and at the tail
+    frame_encoder._graphed_tail.cache_clear()
     trace.start()
     try:
         on = _encode(pcm)
