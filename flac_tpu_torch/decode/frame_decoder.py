@@ -736,11 +736,13 @@ def byte_rows_to_words(rows: torch.Tensor) -> torch.Tensor:
 
 def make_verifier(cfg, device: torch.device):
     """Verify-while-encoding (the reference's decoder-in-the-encoder,
-    stream_encoder.c:977-1006): fn(rows) -> pcm [B, T, Ch] of the decoded
-    frames, on the device, one packed frame a row. `rows` are int32 word
-    rows [B, maxwords] (the padded layout) or uint8 byte rows [B, maxb]
-    (flac_tpu's dense layout), on `device`; the rows are decoded where they
-    lie, back to back, plus the zero words bytes_to_words appends."""
+    stream_encoder.c:977-1006): fn(rows) -> (pcm [B, T, Ch] of the decoded
+    frames, flagged [B] bool: the scan's `unary_overflow`, frames whose
+    samples here are not theirs), on the device, one packed frame a row.
+    `rows` are int32 word rows [B, maxwords] (the padded layout) or uint8
+    byte rows [B, maxb] (flac_tpu's dense layout), on `device`; the rows
+    are decoded where they lie, back to back, plus the zero words
+    bytes_to_words appends."""
     geom = DecoderGeometry(blocksize=cfg.blocksize, channels=cfg.channels,
                            bits_per_sample=cfg.bits_per_sample,
                            sample_rate=cfg.sample_rate,
@@ -756,7 +758,7 @@ def make_verifier(cfg, device: torch.device):
                               torch.zeros(2, dtype=_I32, device=rows.device)])
             row_bits = rows.shape[1] * 32
         starts = torch.arange(B, dtype=_I64, device=rows.device) * row_bits
-        pcm, _end, _meta = dec(flat, starts)
-        return pcm
+        pcm, _end, meta = dec(flat, starts)
+        return pcm, meta["unary_overflow"]
 
     return verify

@@ -15,21 +15,34 @@ The final partial frame takes the second route in both, through
 frame_encoder.encode_tail: one length-generic step, replayed from its third
 call on, for every length at which the step's static choices are those of
 the full blocksize (at -5 16-bit, every length from 41 samples), and a step
-built for the length below that. With `verify=True` every batch of full
-frames is decoded where it was packed (decode.frame_decoder's verifier)
-and compared with its input before it is written; the final partial
-frame is not verified, as in flac_tpu.
+built for the length below that.
+
+With `verify=True` (flac -V) every frame is decoded and compared with its
+input before it is written. A batch of full frames is decoded where it was
+packed (decode.frame_decoder's verifier); the frames its scan flags
+(`unary_overflow`), whose device samples are not the frame's, and the final
+partial frame are decoded on the host from their own bytes
+(decode.host_decoder, the route decode.stream takes for them). flac_tpu
+compares the flagged frames' device samples, and so raises on some valid
+streams, and leaves the final partial frame unverified; the port does
+neither, and writes the same bytes.
 
 Each StreamEncoder is one request of flac_tpu_torch.trace, from its
 construction to finish(); its stages are the spans `encoder.open`,
 `encoder.process`, `encoder.buffer`, `encoder.md5`, `encoder.batch` (one a
-step call), `encoder.copy_back`, `encoder.verify`, `encoder.emit`,
-`encoder.finish`, `encoder.tail` and `encoder.streaminfo`.
+step call), `encoder.copy_back`, `encoder.verify` (child
+`encoder.verify_host`, a host decode), `encoder.emit`, `encoder.finish`,
+`encoder.tail` and `encoder.streaminfo`. Verify's counters, over the
+process: `verified_frames` (frames compared with their input, the final
+partial ones included), `verify_host_frames` (those of them decoded on the
+host) and `verify_ns` (host-clock nanoseconds inside verify).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
+import time
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -37,6 +50,7 @@ import torch
 
 from flac_tpu_torch import constants as C
 from flac_tpu_torch import trace
+from flac_tpu_torch.decode import host_decoder as hd
 from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import packer
@@ -57,6 +71,12 @@ from flac_tpu_torch.version import VENDOR_STRING
 
 class VerifyError(Exception):
     pass
+
+
+# verify's counters, over the process (module docstring)
+verified_frames = 0
+verify_host_frames = 0
+verify_ns = 0
 
 
 @dataclass
@@ -149,6 +169,9 @@ class StreamEncoder:
                        if not p.is_placeholder) if self._seektable else [])
             self._seek_fill: dict[int, tuple[int, int]] = {}
             self._verifier = make_verifier(self.cfg, self.device) if verify else None
+            # a host decode reads a frame's header against this STREAMINFO
+            self._verify_header = (C.STREAM_SYNC_STRING + serialize_metadata([self._streaminfo])
+                                   if verify else None)
 
     # -- processing ---------------------------------------------------------
 
@@ -210,8 +233,9 @@ class StreamEncoder:
             with trace.span("encoder.copy_back"):
                 total_bits = total_bits.cpu().numpy()
             if self.verify:
-                with trace.span("encoder.verify"):
-                    self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch)
+                with self._verifying(nb):
+                    self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch,
+                                     total_bits)
             with trace.span("encoder.copy_back"):
                 total = int(total)
                 host = stream[: (total + 3) // 4].cpu().numpy()
@@ -221,8 +245,8 @@ class StreamEncoder:
             words, total_bits, _info = self._encode(batch, fnos)
             self.stats.batches += 1
             if self.verify:
-                with trace.span("encoder.verify"):
-                    self._run_verify(words, nb, batch)
+                with self._verifying(nb):
+                    self._run_verify(words, nb, batch, total_bits)
             with trace.span("encoder.copy_back"):
                 words, total_bits = words.cpu().numpy(), total_bits.cpu().numpy()
             with trace.span("encoder.emit"):
@@ -292,23 +316,74 @@ class StreamEncoder:
         inside = col < torch.as_tensor(lengths, device=dev)[:, None]
         return torch.where(inside, data[torch.clamp(idx, max=data.numel() - 1)], 0)
 
-    def _run_verify(self, rows: torch.Tensor, nframes: int,
-                    pcm_batch: np.ndarray) -> None:
+    def _run_verify(self, rows: torch.Tensor, nframes: int, pcm_batch: np.ndarray,
+                    total_bits) -> None:
         """Verify-while-encoding (the reference's decoder-in-the-loop,
         stream_encoder.c:314,977-1006): decode the frames where they were
-        packed and compare them with the input PCM. `rows` are the padded
-        word rows (int32 [B, W]) or the dense route's byte rows (uint8
-        [nframes, maxb])."""
-        got = self._verifier(rows)[:nframes].to(torch.int32)
+        packed and compare them with the input PCM; a frame the scan flags
+        is decoded on the host from its own bytes and compared instead.
+        `rows` are the padded word rows (int32 [B, W]) or the dense route's
+        byte rows (uint8 [nframes, maxb]); `total_bits` each frame's length
+        in bits. Raises VerifyError at the first frame that differs."""
+        got, flagged = self._verifier(rows)
+        got = got[:nframes].to(torch.int32)
         want = torch.as_tensor(pcm_batch[:nframes], device=self.device)
-        if torch.equal(got, want):
-            return
-        got, want = got.cpu().numpy(), pcm_batch[:nframes]
-        f, s, ch = np.argwhere(got != want)[0]
+        # one copy back: a frame's device samples differ, the scan flagged it
+        differs, flagged = torch.stack(
+            [(got != want).flatten(1).any(1), flagged[:nframes]]).cpu().numpy()
+        for f in np.flatnonzero(differs | flagged):
+            if flagged[f]:
+                self._verify_on_host(self._frame_bytes(rows, f, total_bits), pcm_batch[f],
+                                     self._frame_no + int(f))
+            else:
+                self._raise_mismatch(got[f].cpu().numpy(), pcm_batch[f],
+                                     self._frame_no + int(f))
+
+    @contextlib.contextmanager
+    def _verifying(self, nframes: int):
+        """The span and counters of verifying `nframes` frames."""
+        global verified_frames, verify_ns
+        t0 = time.perf_counter_ns()
+        try:
+            with trace.span("encoder.verify"):
+                yield
+            verified_frames += nframes
+        finally:
+            verify_ns += time.perf_counter_ns() - t0
+
+    @staticmethod
+    def _frame_bytes(rows: torch.Tensor, f: int, total_bits) -> bytes:
+        """Frame f's bytes, from its word or byte row."""
+        row = rows[f].cpu().numpy()
+        if row.dtype != np.uint8:
+            row = row.astype(">u4").view(np.uint8)
+        return row[: (int(total_bits[f]) + 7) // 8].tobytes()
+
+    def _verify_on_host(self, data: bytes, want: np.ndarray, frame: int) -> None:
+        """Decode frame number `frame` from its own bytes on the host (the
+        frames the scan flags, the final partial frame) and compare it with
+        its input `want` [n, channels]."""
+        global verify_host_frames
+        with trace.span("encoder.verify_host"):
+            host = hd.HostDecoder(self._verify_header + data, check_md5=False)
+            try:
+                got, _info = host.decode_frame_at(len(self._verify_header))
+            except (hd.DecodeError, EOFError, ValueError, KeyError) as e:
+                raise VerifyError(f"verify: frame {frame} does not decode: {e}") from e
+        verify_host_frames += 1
+        if got.shape != want.shape:
+            raise VerifyError(f"verify mismatch at frame {frame}: "
+                              f"{got.shape[0]} samples decoded of {want.shape[0]}")
+        if not np.array_equal(got, want):
+            self._raise_mismatch(got, want, frame)
+
+    @staticmethod
+    def _raise_mismatch(got: np.ndarray, want: np.ndarray, frame: int) -> None:
+        """VerifyError naming the first sample of the frame that differs."""
+        s, ch = np.argwhere(got != want)[0]
         raise VerifyError(
-            f"verify mismatch at frame {int(f) + self._frame_no} sample {int(s)} "
-            f"channel {int(ch)}: expected {int(want[f, s, ch])}, "
-            f"got {int(got[f, s, ch])}")
+            f"verify mismatch at frame {frame} sample {int(s)} channel {int(ch)}: "
+            f"expected {int(want[s, ch])}, got {int(got[s, ch])}")
 
     # -- finish -------------------------------------------------------------
 
@@ -343,8 +418,12 @@ class StreamEncoder:
         self.stats.batches += 1
         with trace.span("encoder.copy_back"):
             words, total_bits = words[0].cpu().numpy(), int(total_bits[0])
+        data = words.astype(">u4").view(np.uint8).tobytes()[: total_bits // 8]
+        if self.verify:
+            with self._verifying(1):
+                self._verify_on_host(data, tail, self._frame_no)
         with trace.span("encoder.emit"):
-            self._emit_partial(words, total_bits)
+            self._emit_partial(data)
         self._frame_no += 1
         self.stats.samples += rem
 
@@ -375,8 +454,7 @@ class StreamEncoder:
             self.out.seek(0, io.SEEK_END)
         return si
 
-    def _emit_partial(self, words: np.ndarray, total_bits: int) -> None:
-        data = words.astype(">u4").view(np.uint8).tobytes()[: total_bits // 8]
+    def _emit_partial(self, data: bytes) -> None:
         self.out.write(data)
         n = len(data)
         self.stats.bytes_written += n
@@ -397,8 +475,8 @@ def encode_file(in_samples: np.ndarray, sample_rate: int, bits_per_sample: int,
 
     `in_samples` may also be an array-like that materializes on slicing: the
     input is fed to the stream encoder in bounded chunks. `verify=True`
-    decodes every batch of full frames on the device and raises VerifyError
-    on the first sample that differs from the input."""
+    decodes every frame before it is written (StreamEncoder) and raises
+    VerifyError on the first sample that differs from the input."""
     device = resolve_device(device)  # raise before the output file is opened
     if in_samples.ndim == 1:
         in_samples = in_samples[:, None]

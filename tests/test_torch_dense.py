@@ -199,13 +199,15 @@ def test_dense_stream_encoder_bytes_match_tiny_frames(monkeypatch, case):
     assert 0 < max_frame_bytes < (160 if case == "near_silent_8bit_mono" else 32)
 
 
-@pytest.mark.parametrize("case", ["sine_passes", "flagged_24bit_raises"])
+@pytest.mark.parametrize("case", ["sine_passes", "flagged_24bit_port_verifies"])
 def test_dense_verify_matches_flac_tpu(monkeypatch, case):
     """Dense verify decodes flac_tpu's byte rows (the first nframes frames,
-    maxb bytes each, zero past each frame). On a sine it passes; on the
+    maxb bytes each, zero past each frame). On a sine it passes. On the
     near-silent 24-bit frames with full-scale spikes of
     tests/test_torch_verify_flagged.py, whose Rice outliers the narrow scan
-    flags, both packages raise the same VerifyError (ROADMAP queue 3)."""
+    flags, flac_tpu raises VerifyError (ROADMAP queue 3); the port decodes
+    the flagged frames on the host, verifies the stream and writes
+    flac_tpu's dense verify=False bytes."""
     monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
     if case == "sine_passes":
         bps, sig = 16, make_signal(T * 4 + 11, 2, 16, kind="sine", seed=78)
@@ -217,11 +219,12 @@ def test_dense_verify_matches_flac_tpu(monkeypatch, case):
     amp = (1 << 23) - 1
     x = rng.integers(-3, 4, (4 * T, 2)).astype(np.int32)
     x[rng.integers(0, len(x), 40)] = rng.integers(-amp - 1, amp + 1, (40, 2)).astype(np.int32)
-    with pytest.raises(j_enc.VerifyError) as jerr:
+    with pytest.raises(j_enc.VerifyError):
         _encode_jax(x, True, bps=bps, verify=True)
-    with pytest.raises(t_enc.VerifyError) as terr:
-        _encode_torch(x, monkeypatch, True, bps=bps, verify=True)
-    assert str(terr.value) == str(jerr.value)
+    before = t_enc.verify_host_frames
+    got, stats = _encode_torch(x, monkeypatch, True, bps=bps, verify=True)
+    assert got == _encode_jax(x, True, bps=bps)
+    assert t_enc.verify_host_frames - before >= 1 and stats.frames == 4
 
 
 @pytest.mark.cuda

@@ -131,9 +131,10 @@ def test_verify_raises_on_a_mismatch(tmp_path, monkeypatch):
         verify = make(cfg, device)
 
         def bad(words):
-            pcm = verify(words).clone()
+            pcm, flagged = verify(words)
+            pcm = pcm.clone()
             pcm[1, 7, 1] += 1
-            return pcm
+            return pcm, flagged
         return bad
 
     monkeypatch.setattr(t_enc, "make_verifier", corrupting)
