@@ -29,20 +29,37 @@ neither, and writes the same bytes.
 
 Each StreamEncoder is one request of flac_tpu_torch.trace, from its
 construction to finish(); its stages are the spans `encoder.open`,
-`encoder.process`, `encoder.buffer`, `encoder.md5`, `encoder.batch` (one a
-step call), `encoder.copy_back`, `encoder.verify` (child
-`encoder.verify_host`, a host decode), `encoder.emit`, `encoder.finish`,
-`encoder.tail` and `encoder.streaminfo`. Verify's counters, over the
-process: `verified_frames` (frames compared with their input, the final
-partial ones included), `verify_host_frames` (those of them decoded on the
-host) and `verify_ns` (host-clock nanoseconds inside verify).
+`encoder.process`, `encoder.buffer`, `encoder.batch` (one a step call),
+`encoder.copy_back`, `encoder.verify` (child `encoder.verify_host`, a host
+decode), `encoder.emit`, `encoder.md5_wait`, `encoder.finish`,
+`encoder.tail` and `encoder.streaminfo`, and `encoder.md5` on the MD5
+worker thread, its parent the span that handed the update over. Verify's
+counters, over the process: `verified_frames` (frames compared with their
+input, the final partial ones included), `verify_host_frames` (those of
+them decoded on the host) and `verify_ns` (host-clock nanoseconds inside
+verify).
+
+The STREAMINFO MD5 is accumulated on the process's MD5 worker, one thread
+made at the first update, in the order the samples were handed over: each
+chunk of full frames before its batches are stepped, the final partial
+frame before its step. The hash overlaps the main thread's step, copy back,
+verify and emit of the same chunk (the native update releases the GIL).
+Every process() and finish() waits for the updates it handed over before
+it returns (`encoder.md5_wait`), and raises there an update's exception;
+no chunk handed over is written afterwards (the buffer is only ever
+replaced, never written in place). The MD5 counters, over the process:
+`md5_updates` (updates run on the worker, counted when waited for) and
+`md5_wait_ns` (main-thread host-clock nanoseconds spent waiting for them).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
+import os
 import time
+from concurrent import futures
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -77,6 +94,10 @@ class VerifyError(Exception):
 verified_frames = 0
 verify_host_frames = 0
 verify_ns = 0
+
+# the MD5 worker's counters, over the process (module docstring)
+md5_updates = 0
+md5_wait_ns = 0
 
 
 @dataclass
@@ -115,6 +136,8 @@ class StreamEncoder:
             self.do_md5 = do_md5
             self.verify = verify
             self._md5 = MD5Context()
+            self._md5_worker: futures.ThreadPoolExecutor | None = None
+            self._md5_pending: list[futures.Future] = []
             self._buf = np.zeros((0, self.cfg.channels), np.int32)
             self._frame_no = 0
             # the dense route compacts each batch on the device, so that only
@@ -181,8 +204,11 @@ class StreamEncoder:
             samples = samples[:, None]
         assert samples.shape[1] == self.cfg.channels
         with trace.span("encoder.process", stream=self._stream):
-            for chunk in self._take_full_frames(samples):
-                self._encode_full_frames(chunk)
+            try:
+                for chunk in self._take_full_frames(samples):
+                    self._encode_full_frames(chunk)
+            finally:
+                self._md5_barrier()
 
     def _take_full_frames(self, samples: np.ndarray) -> list[np.ndarray]:
         """Append `samples` to the buffer and take from it the chunks of
@@ -210,12 +236,36 @@ class StreamEncoder:
         nframes = chunk.shape[0] // bs
         frames = chunk.reshape(nframes, bs, self.cfg.channels)
         if self.do_md5:
-            with trace.span("encoder.md5"):
-                self._md5.accumulate(chunk, self.cfg.bits_per_sample)
+            self._hash(chunk)
         B = self.batch_frames
         for start in range(0, nframes, B):
             with trace.span("encoder.batch"):
                 self._encode_batch(frames[start : start + B])
+
+    def _hash(self, samples: np.ndarray) -> None:
+        """Hand the MD5 update over `samples` to the process's MD5 worker,
+        which runs the updates in the order they were handed over; the
+        stream keeps the worker it first took."""
+        if self._md5_worker is None:
+            self._md5_worker = _md5_worker(os.getpid())
+        self._md5_pending.append(self._md5_worker.submit(
+            _md5_update, self._md5, samples, self.cfg.bits_per_sample, trace.current()))
+
+    def _md5_barrier(self) -> None:
+        """Wait until every MD5 update handed over has run; raise the first
+        exception one of them raised. The counters are kept here, on the
+        calling thread, as verify's are."""
+        global md5_updates, md5_wait_ns
+        if not self._md5_pending:
+            return
+        pending, self._md5_pending = self._md5_pending, []
+        t0 = time.perf_counter_ns()
+        with trace.span("encoder.md5_wait"):
+            futures.wait(pending)
+        md5_wait_ns += time.perf_counter_ns() - t0
+        for f in pending:
+            f.result()
+        md5_updates += len(pending)
 
     def _encode_batch(self, batch: np.ndarray) -> None:
         """One step call over a batch of full frames (padded to the static
@@ -391,20 +441,22 @@ class StreamEncoder:
         assert not self._finished
         with trace.span("encoder.finish", stream=self._stream):
             bs = self.cfg.blocksize
-            # flush whole frames first, then the final partial frame
-            nfull = self._buf.shape[0] // bs
-            if nfull:
-                chunk = self._buf[: bs * nfull]
-                self._buf = self._buf[bs * nfull:]
-                self._encode_full_frames(chunk)
-            if self._buf.shape[0]:
-                tail = self._buf
-                self._buf = self._buf[:0]
-                if self.do_md5:
-                    with trace.span("encoder.md5"):
-                        self._md5.accumulate(tail, self.cfg.bits_per_sample)
-                with trace.span("encoder.tail"):
-                    self._encode_tail(tail)
+            try:
+                # flush whole frames first, then the final partial frame
+                nfull = self._buf.shape[0] // bs
+                if nfull:
+                    chunk = self._buf[: bs * nfull]
+                    self._buf = self._buf[bs * nfull:]
+                    self._encode_full_frames(chunk)
+                if self._buf.shape[0]:
+                    tail = self._buf
+                    self._buf = self._buf[:0]
+                    if self.do_md5:
+                        self._hash(tail)
+                    with trace.span("encoder.tail"):
+                        self._encode_tail(tail)
+            finally:
+                self._md5_barrier()  # the digest is read below
             self._finished = True
             with trace.span("encoder.streaminfo"):
                 return self._rewrite_metadata()
@@ -461,6 +513,23 @@ class StreamEncoder:
         self.stats.frames += 1
         self.stats.min_framesize = min(self.stats.min_framesize, n)
         self.stats.max_framesize = max(self.stats.max_framesize, n)
+
+
+@functools.cache
+def _md5_worker(pid: int) -> futures.ThreadPoolExecutor:
+    """Process `pid`'s MD5 worker: one thread for every stream, made at the
+    first update (a thread made and joined for each stream costs a short
+    file more than its hash hides). A forked child, whose copy of the
+    parent's worker has no thread, makes its own."""
+    return futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="encoder-md5")
+
+
+def _md5_update(md5: MD5Context, samples: np.ndarray, bits: int,
+                cause: tuple | None) -> None:
+    """One ordered MD5 update on the MD5 worker thread, a span caused by the
+    span that handed it over."""
+    with trace.span("encoder.md5", parent=cause):
+        md5.accumulate(samples, bits)
 
 
 def encode_file(in_samples: np.ndarray, sample_rate: int, bits_per_sample: int,

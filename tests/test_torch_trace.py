@@ -1,6 +1,6 @@
 """flac_tpu_torch.trace, the port's span recorder, on the CPU: the span
-tree of a stream encode and of a decode call, the MD5 worker's span and
-its cause, nothing recorded while the recorder is off, the same bytes and
+tree of a stream encode and of a decode call, the MD5 workers' spans and
+their causes, nothing recorded while the recorder is off, the same bytes and
 PCM with it on and off, and the cap on the spans kept; on the card, the
 spans and torch.profiler's device events on one clock (`-m cuda`)."""
 
@@ -81,26 +81,36 @@ def test_encode_records_the_span_tree(encoded):
     assert on == off
     batch = [(1, "encoder.batch"), (2, "step.eager"), (2, "encoder.copy_back"),
              (2, "encoder.emit")]
-    assert _tree(spans) == [
+    main = [s for s in spans if s[0] != "encoder.md5"]
+    assert _tree(main) == [
         (0, "encoder.open"), (1, "step.build"),
-        (0, "encoder.process"), (1, "encoder.buffer"),
-        (1, "encoder.md5"), *batch, (1, "encoder.md5"), *batch, (1, "encoder.md5"), *batch,
-        (0, "encoder.finish"), (1, "encoder.md5"),
+        (0, "encoder.process"), (1, "encoder.buffer"), *batch, *batch, *batch,
+        (1, "encoder.md5_wait"),
+        (0, "encoder.finish"),
         (1, "encoder.tail"), (2, "step.build"), (2, "step.eager"), (2, "encoder.copy_back"),
-        (2, "encoder.emit"),
+        (2, "encoder.emit"), (1, "encoder.md5_wait"),
         (1, "encoder.streaminfo")]
     assert len({s[3] for s in spans}) == 1 and spans[0][3] > 0
-    assert len({s[4] for s in spans}) == 1
+    assert len({s[4] for s in main}) == 1
     # one batch span a step call, each holding that call's span
     by_id = {s[1]: s for s in spans}
     steps = [s for s in spans if s[0] == "step.eager"]
     assert len(steps) == 4
     assert sorted(by_id[s[2]][0] for s in steps) == ["encoder.batch"] * 3 + ["encoder.tail"]
-    for s in spans:
+    for s in main:
         assert s[5] <= s[6]
         if s[2]:
             parent = by_id[s[2]]
             assert parent[5] <= s[5] and s[6] <= parent[6]
+    # the MD5 on its worker thread: an update a chunk, then the tail's, each
+    # caused by the span that handed it over and done before the wait after it
+    md5 = sorted((s for s in spans if s[0] == "encoder.md5"), key=lambda s: s[5])
+    assert [by_id[s[2]][0] for s in md5] == ["encoder.process"] * 3 + ["encoder.finish"]
+    assert len({s[4] for s in md5}) == 1 and md5[0][4] != main[0][4]  # one worker
+    waits = sorted((s for s in spans if s[0] == "encoder.md5_wait"), key=lambda s: s[5])
+    for s in md5:
+        assert s[5] >= by_id[s[2]][5]
+        assert s[6] <= next(w for w in waits if w[2] == s[2])[6]
 
 
 def test_decode_records_the_span_tree_and_the_md5_worker(encoded, recorder):
