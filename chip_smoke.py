@@ -34,22 +34,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     case is among the packer cases.
 4. encode         — the main path: encode_file(level=5) of 60 s of 44.1 kHz
                     stereo 16-bit PCM made from a seed, on the card, through
-                    the dense route (each batch of full frames compacted on
-                    the card, its valid words copied back and written in one
-                    piece); the pack kernel's launch count must equal the
-                    number of frame batches (the final partial block
-                    included), the compaction kernel's the number of
-                    batches of full frames (the partial frame takes the
-                    padded route), and the stream's SHA-256 the padded route's. The
-                    file is
+                    the stream encoder's one route (each batch of full frames
+                    compacted on the card, its valid words copied back and
+                    written in one piece); the pack kernel's launch count
+                    must equal the number of frame batches (the final
+                    partial block included), the compaction kernel's the
+                    number of batches of full frames (the partial frame
+                    comes back as its own word row), and the stream's
+                    SHA-256 the recorded one. The file is
                     decoded by the port's host decoder (CRC-8, CRC-16 and MD5
                     checked) and must give the PCM back. The first batch is
                     also encoded on the CPU, and must give the same bytes
                     frame for frame. One 64-frame batch
                     is timed by stage on the host clock (the two device
-                    stages; the host's MD5, and the copy back and emit of
-                    the dense route and of the padded one, the CPU's, at the
-                    same point) and once under
+                    stages; the host's MD5, the step, its copy back and
+                    emit) and the step once under
                     torch.profiler (device busy time, device events); the idle
                     share divides the busy time by the unprofiled wall; 3
                     pack() calls under the profiler (after a warm-up step)
@@ -72,20 +71,21 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     first run's wall and over the replayed run's gives the
                     run's idle shares. The stream's SHA-256 is printed, to
                     compare streams across versions.
-5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s under
-                    FLAC_TPU_PACKER=merged: its bytes must equal phase 4's,
-                    its graph route phase 4's pattern,
-                    pack_words_multi must launch once a batch, the
-                    compaction once a batch of full frames, and the
+5. encode_merged  — encode_file(level=5, verify=True) of the same 60 s: its
+                    bytes must equal phase 4's, every step call replays a
+                    graph phase 4 captured, pack must launch once a batch,
+                    the compaction once a batch of full frames, and the
                     verifier must decode every batch of full frames through
                     the decode kernels (the subframe scan once a channel, the
-                    restore once) without a VerifyError; the dense verify
-                    decodes flac_tpu's byte rows (each frame in a row of the
-                    batch's largest frame length). The merged encode
-                    runs once more without verify, for the fill's own cost,
-                    then the banded encode once more, and one 64-frame batch
-                    is timed by stage as in phase 4 with each fill, so that
-                    the two fills are compared at one point of the run.
+                    restore once) without a VerifyError; verify decodes
+                    flac_tpu's byte rows (each frame in a row of the batch's
+                    largest frame length). Then the merged fill, which the
+                    encoder does not take: the fields of every batch of the
+                    stream (build_frame_encoder_parts; the final partial
+                    frame at its length) packed by
+                    pack_frames_kernel(merged=True) must give the banded
+                    fill's words and bit counts, each fill launched once a
+                    batch (phase 3 times the two fills against each other).
 6. kernels_decode — holds the subframe-scan kernel (the subframe-header parse
                     and the residual scan in one) against its plain version,
                     read_subframe_header then narrow_residual_scan, bit for
@@ -122,7 +122,7 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     same bytes. One 64-frame batch is timed by stage and its
                     device idle share taken as in phase 4, and the graphed
                     steps checked and timed as in phase 4; the graph route
-                    as in phase 4; the SHA-256 must be the padded route's.
+                    as in phase 4; the SHA-256 must be the recorded one.
                     Then 10 s of the same format with -p and escape coding
                     on tests/test_escape.py's burst signal: escaped
                     partitions, lossless, the first 8 frames CPU-identical,
@@ -271,8 +271,9 @@ Phases, each printing one JSON line (any failure raises and exits nonzero):
                     whose ranks share it: not a scaling figure.
 16. the `kernels` line, printed after phase 18: one entry per ported kernel,
    with its launches on its path (and in phase 17, `launches_cli`; in phase
-   18, `launches_sharded`, every rank's), error against the plain version,
-   and times.
+   18, `launches_sharded`, every rank's; for the merged fill, which no path
+   launches, phase 5's direct calls as `launches_direct`), error against the
+   plain version, and times.
 
 The last line is the device line {"ok": true, "device": {...}}.
 `same_card.py` compares two versions of the port on one card.
@@ -342,8 +343,8 @@ SHARDED_AUDIT_FPD = (32, 64)
 SHARDED_PG_TIMEOUT_S = 120  # each process group's timeout
 SHARDED_DEADLINE_S = 300    # the two gloo ranks' deadline, their start included
 SHARDED_NOTE = "one card: ranks share it; not a scaling figure"
-# the SHA-256 of the streams of phases 4 and 8 as the padded route writes
-# them: the dense route must give the same bytes
+# the SHA-256 of the streams of phases 4 and 8: a change that alters their
+# bytes fails here
 SHA256_60S_16BIT_L5 = "42e870d8dfd0eacf428343ecfac8905ae86f67c8a6dd5b6d83470af0fee9847d"
 SHA256_30S_24BIT_L8 = "9b9dcefa258eb4f3ea934f8b4a9fdc564db3424c761417c592b662193cad3626"
 
@@ -1205,7 +1206,6 @@ def main() -> None:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    os.environ["FLAC_TPU_PACKER"] = "pallas"  # the banded fill, unless a phase says
 
     # --- 1. env -------------------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1360,15 +1360,15 @@ def main() -> None:
     if launches == 0 or launches != stats.batches:
         raise AssertionError(f"pack kernel launched {launches} times for "
                              f"{stats.batches} frame batches")
-    # the dense route compacts each batch of full frames; the final partial
-    # frame takes the padded route
+    # each batch of full frames is compacted; the final partial frame comes
+    # back as its own word row
     if compact_launches != full_batches:
         raise AssertionError(f"compaction kernel launched {compact_launches} times for "
                              f"{full_batches} batches of full frames")
     if stats.frames != n_full + 1 or stats.samples != n:
         raise AssertionError(f"encoded {stats.frames} frames / {stats.samples} samples")
     if hashlib.sha256(data).hexdigest() != SHA256_60S_16BIT_L5:
-        raise AssertionError("the 60 s -5 stream differs from the padded route's")
+        raise AssertionError("the 60 s -5 stream differs from the recorded one")
     t1 = time.perf_counter()
     out, si, dframes = decode_bytes(data)  # checks CRC-8, CRC-16 and MD5
     decode_s = time.perf_counter() - t1
@@ -1384,20 +1384,24 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
     fnos_64 = np.arange(64)
 
-    def stage_batch(impl: str, trace_pack: bool = True, cfg=cfg, frames=frames) -> dict:
+    def stage_batch(trace_pack: bool = True, cfg=cfg, frames=frames) -> dict:
         """Where one 64-frame batch of `frames` (encoded with `cfg`) spends
-        its time with the word fill `impl`: the two device stages and the
-        host's MD5, copy back and emit on the host clock, for the dense
-        route (the compacted words, _emit_dense) and for the padded one
-        (the word matrix, _emit, the CPU's route) at the same point; the
-        device's busy time and event count under the profiler, and
-        (trace_pack) pack() alone under the profiler, where it must be one
-        kernel and no other device event."""
-        fields_gpu, pack_gpu = build_frame_encoder_parts(cfg, device=dev, packer_impl=impl)
-        # the steps' eager functions: these stages stay the eager ones (the
+        its time: the two device stages, the pack stage (the step's banded
+        fill), and the stream encoder's step, copy back and emit (the
+        compacted words, _emit_dense) and the host's MD5 on the host clock; the step's device busy time and event
+        count under the profiler, and (trace_pack) the pack stage alone
+        under the profiler, where it must be one kernel and no other device
+        event."""
+        fields_gpu, _ = build_frame_encoder_parts(cfg, device=dev)
+        words = max_frame_bytes(cfg, cfg.blocksize) // 4
+        tbl, inv = tables(words)
+
+        def pack_gpu(v, nb):  # the step's pack()
+            return packer.pack_frames_kernel(v, nb, words, tbl, inv)
+
+        # the step's eager function: these stages stay the eager ones (the
         # graphed steps are timed by graph_step_check)
-        enc = build_frame_encoder(cfg, device=dev, packer_impl=impl).fn
-        enc_dense = build_frame_encoder_dense(cfg, device=dev, packer_impl=impl).fn
+        enc_dense = build_frame_encoder_dense(cfg, device=dev).fn
         emitter = StreamEncoder(cfg, io.BytesIO(), device=dev)
         chunk = frames[:64].reshape(-1, cfg.channels)
 
@@ -1414,42 +1418,31 @@ def main() -> None:
         def host_stages():
             # a fresh sink for each emit: writing into one that has grown
             # over the runs adds its reallocations to whichever emit hits them
-            padded_sink, dense_sink = io.BytesIO(), io.BytesIO()
+            emitter.out = io.BytesIO()
             t_a = time.perf_counter()
             MD5Context().accumulate(chunk, cfg.bits_per_sample)
             t_b = time.perf_counter()
-            w, tb, _ = enc(frames[:64], fnos_64)
-            torch.cuda.synchronize()
-            t_c = time.perf_counter()
-            wh, th = w.cpu().numpy(), tb.cpu().numpy()
-            emitter.out = padded_sink
-            t_d = time.perf_counter()
-            emitter._emit(wh, th, 64)
-            t_e = time.perf_counter()
             stream, total, tb, _ = enc_dense(frames[:64], fnos_64)
             torch.cuda.synchronize()
-            t_f = time.perf_counter()
+            t_c = time.perf_counter()
             th = tb.cpu().numpy()
             total = int(total)
             sh = stream[: (total + 3) // 4].cpu().numpy()
-            emitter.out = dense_sink
-            t_g = time.perf_counter()
+            t_d = time.perf_counter()
             emitter._emit_dense(sh, total, th, 64)
-            t_h = time.perf_counter()
+            t_e = time.perf_counter()
             return tuple((y - x) * 1e3 for x, y in
-                         ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e),
-                          (t_e, t_f), (t_f, t_g), (t_g, t_h))) + (len(sh),)
+                         ((t_a, t_b), (t_b, t_c), (t_c, t_d), (t_d, t_e))) + (len(sh),)
 
         staged()
         host_stages()
         runs = [(staged(), host_stages()) for _ in range(7)]  # interleaved
         fields_ms, pack_ms = (float(np.median(s)) for s in zip(*[a for a, _ in runs]))
-        (md5_ms, batch_ms, copy_ms, emit_ms, dense_batch_ms, dense_copy_ms,
-         dense_emit_ms, dense_words) = (float(np.median(s))
-                                        for s in zip(*[b for _, b in runs]))
+        md5_ms, batch_ms, copy_ms, emit_ms, words_back = (
+            float(np.median(s)) for s in zip(*[b for _, b in runs]))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t_a = time.perf_counter()
-            enc(frames[:64], fnos_64)
+            enc_dense(frames[:64], fnos_64)
             torch.cuda.synchronize()
             profiled_ms = (time.perf_counter() - t_a) * 1e3
         # the device's own events (kernels, copies, fills); summing
@@ -1458,12 +1451,10 @@ def main() -> None:
         spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         device_ms = busy_ms(spans) if spans else None  # None: the trace saw no device
-        stages = {"fields_ms": fields_ms, "pack_ms": pack_ms, "encode_wall_ms": batch_ms,
-                  "host_md5_ms": md5_ms, "host_copy_back_ms": copy_ms,
-                  "host_emit_ms": emit_ms, "dense_encode_wall_ms": dense_batch_ms,
-                  "dense_copy_back_ms": dense_copy_ms, "dense_emit_ms": dense_emit_ms,
-                  "dense_copy_back_words": int(dense_words),
-                  "padded_copy_back_words": 64 * max_frame_bytes(cfg, BLOCKSIZE) // 4,
+        stages = {"fields_ms": fields_ms, "pack_ms": pack_ms,
+                  "encode_wall_ms": batch_ms, "host_md5_ms": md5_ms,
+                  "host_copy_back_ms": copy_ms, "host_emit_ms": emit_ms,
+                  "copy_back_words": int(words_back),
                   "profiled_wall_ms": profiled_ms,
                   "device_busy_ms": device_ms, "device_events": len(spans),
                   # busy time over the unprofiled wall; the profiled wall
@@ -1481,7 +1472,7 @@ def main() -> None:
             """Device events of 3 pack() calls, after a warm-up step: the
             trace misses launches made just after it starts."""
             traces = []
-            counted = pw.launches + pw.pack_words_multi.launches
+            counted = pw.launches
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                          schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
                          on_trace_ready=lambda p: traces.append(
@@ -1493,8 +1484,8 @@ def main() -> None:
                         pack_gpu(v, nb)
                     torch.cuda.synchronize()
                     prof_pack.step()
-            if pw.launches + pw.pack_words_multi.launches != counted + 4:
-                raise AssertionError(f"pack() with the {impl} fill did not launch once a call")
+            if pw.launches != counted + 4:
+                raise AssertionError("pack() did not launch once a call")
             return traces[0] if traces else []
 
         # a trace that saw fewer device events than the 3 launches the
@@ -1504,12 +1495,12 @@ def main() -> None:
         while len(pack_events) < 3 and sessions < 3:
             pack_events, sessions = pack_trace(), sessions + 1
         if len(pack_events) != 3 or any("pack_frames_kernel" not in e for e in pack_events):
-            raise AssertionError(f"3 pack() calls with the {impl} fill ran {pack_events} "
+            raise AssertionError(f"3 pack() calls ran {pack_events} "
                                  "on the device, not one pack kernel each")
         return dict(stages, pack_device_events_3_calls=pack_events,
                     pack_trace_sessions=sessions)
 
-    one_batch = stage_batch("pallas")
+    one_batch = stage_batch()
     graphed_batch = graph_step_check(cfg, frames, dev, "level5")
     # the whole encode again, every batch a replay (and the partial frame's
     # capture), then again under the profiler, device activity only: its
@@ -1545,64 +1536,66 @@ def main() -> None:
           "stream_sha256": hashlib.sha256(data).hexdigest(),
           "one_batch_64": one_batch, "graphed_batch_64": graphed_batch})
 
-    # --- 5. the merged fill with verify on the card ------------------------
-    os.environ["FLAC_TPU_PACKER"] = "merged"
-    try:
-        with tempfile.TemporaryDirectory() as tmp:
-            path = os.path.join(tmp, "merged.flac")
-            torch.cuda.synchronize()
-            pw.pack_words_multi.launches = rs.launches = rr.launches = cst.launches = 0
-            since = graph_counts()
-            t0 = time.perf_counter()
-            mstats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5, verify=True)
-            torch.cuda.synchronize()
-            merged_wall = time.perf_counter() - t0
-            merged_graph_route = check_first_encode("the merged encode", since,
-                                                    full_batches)
-            merged_launches = pw.pack_words_multi.launches
-            merged_compact_launches = cst.launches
-            verify_launches = (rs.launches, rr.launches)
-            with open(path, "rb") as f:
-                merged_data = f.read()
-            # the same without verify: what the merged fill costs alone
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "nv.flac"), level=5)
-            torch.cuda.synchronize()
-            merged_noverify_wall = time.perf_counter() - t0
-    finally:
-        os.environ["FLAC_TPU_PACKER"] = "pallas"
-    # the banded encode again at this point of the run: the gap between the
-    # two fills' walls is then the fill's, not the process's state
+    # --- 5. verify on the card, and the merged fill on the same batches -----
     with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "verify.flac")
         torch.cuda.synchronize()
+        pw.launches = rs.launches = rr.launches = cst.launches = 0
+        since = graph_counts()
         t0 = time.perf_counter()
-        encode_file(pcm, SAMPLE_RATE, 16, os.path.join(tmp, "b.flac"), level=5)
+        vstats = encode_file(pcm, SAMPLE_RATE, 16, path, level=5, verify=True)
         torch.cuda.synchronize()
-        banded_again_wall = time.perf_counter() - t0
-    if merged_data != data:
-        raise AssertionError("the merged fill's stream differs from the banded one")
-    if merged_launches != mstats.batches:
-        raise AssertionError(f"pack_words_multi launched {merged_launches} times for "
-                             f"{mstats.batches} batches")
-    if merged_compact_launches != full_batches:
-        raise AssertionError(f"the merged encode compacted {merged_compact_launches} "
-                             f"batches of {full_batches}")
+        verify_wall = time.perf_counter() - t0
+        # phase 4 left every step of this configuration captured: each call
+        # replays, the final partial frame's included
+        verify_route = dict(zip(("eager_calls", "captures", "replays"),
+                                (a - b for a, b in zip(graph_counts(), since))))
+        verify_pack_launches, verify_compact_launches = pw.launches, cst.launches
+        verify_launches = (rs.launches, rr.launches)
+        with open(path, "rb") as f:
+            verify_data = f.read()
+    if verify_data != data:
+        raise AssertionError("the verify encode's stream differs from phase 4's")
+    if list(verify_route.values()) != [0, 0, full_batches + 1]:
+        raise AssertionError(f"the verify encode's graph route {verify_route}, not "
+                             f"{full_batches + 1} replays")
+    if (verify_pack_launches, verify_compact_launches) != (vstats.batches, full_batches):
+        raise AssertionError(f"the verify encode launched pack {verify_pack_launches} and "
+                             f"the compaction {verify_compact_launches} times for "
+                             f"{vstats.batches} batches, {full_batches} of full frames")
     if verify_launches != (2 * full_batches, full_batches):
         raise AssertionError(f"verify launched the decode kernels {verify_launches} "
                              f"times for {full_batches} batches of 2 channels")
-    emit({"phase": "encode_merged", "card": card, "batches": mstats.batches,
-          "pack_words_multi_launches": merged_launches,
-          "compact_stream_launches": merged_compact_launches,
+    # the merged fill (reached through packer alone) on the fields of the
+    # stream's batches of full frames and of its final partial frame: the
+    # banded fill's words and bit counts, each fill launched once a batch
+    batches = [(fields_fn, frames[s_:s_ + 64], np.arange(s_, min(s_ + 64, n_full)),
+                maxwords) for s_ in range(0, n_full, 64)]
+    batches.append((tail_fn, pcm[None, -rem:], np.asarray([n_full]),
+                    max_frame_bytes(cfg, rem) // 4))
+    pw.launches = pw.pack_words_multi.launches = 0
+    for fields, pcm_b, fnos_b, words in batches:
+        v, nb, _ = fields(pcm_b, fnos_b)
+        tbl, inv = tables(words)
+        wb, tb = packer.pack_frames_kernel(v, nb, words, tbl, inv)
+        wm, tm = packer.pack_frames_kernel(v, nb, words, tbl, inv, merged=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(wb, wm) and torch.equal(tb, tm)):
+            raise AssertionError(f"the merged fill's words differ from the banded fill's "
+                                 f"at frame {int(fnos_b[0])}")
+    merged_launches = pw.pack_words_multi.launches
+    if (pw.launches, merged_launches) != (vstats.batches, vstats.batches):
+        raise AssertionError(f"the fills launched ({pw.launches}, {merged_launches}) times "
+                             f"for {vstats.batches} batches")
+    emit({"phase": "encode_merged", "card": card, "batches": vstats.batches,
+          "pack_words_launches": verify_pack_launches,
+          "compact_stream_launches": verify_compact_launches,
           "verify_subframe_scan_launches": verify_launches[0],
           "verify_restore_scan_launches": verify_launches[1],
-          "bytes_equal_banded": True, "verify": "passed", "wall_s": merged_wall,
-          "graph_route": merged_graph_route,
-          "wall_s_without_verify": merged_noverify_wall,
-          "banded_wall_s_again": banded_again_wall,
-          "msamples_per_s_per_channel": n / merged_wall / 1e6,
-          "one_batch_64": stage_batch("merged"),
-          "one_batch_64_banded_again": stage_batch("pallas", trace_pack=False)})
+          "bytes_equal_phase4": True, "verify": "passed", "wall_s": verify_wall,
+          "graph_route": verify_route,
+          "msamples_per_s_per_channel": n / verify_wall / 1e6,
+          "pack_words_multi_launches": merged_launches, "words_equal_banded": True})
 
     # --- 6. decode kernels against their plain versions -----------------------
     d8 = np.frombuffer(data, np.uint8)
@@ -1878,8 +1871,7 @@ def main() -> None:
                              f"{hires_launches} and {hires_compact_launches} compactions "
                              f"for {hstats.batches} batches")
     if hashlib.sha256(data24).hexdigest() != SHA256_30S_24BIT_L8:
-        raise AssertionError("the 30 s 24-bit -8 stream differs from the padded "
-                             "route's")
+        raise AssertionError("the 30 s 24-bit -8 stream differs from the recorded one")
     out24, si24, _ = decode_bytes(data24)  # CRC-8, CRC-16 and MD5 checked
     if si24.md5sum == b"\x00" * 16 or not np.array_equal(out24, pcm24):
         raise AssertionError("the 24-bit -8 stream does not decode to its input")
@@ -1887,7 +1879,7 @@ def main() -> None:
     if diff24[0]:
         raise AssertionError(f"{diff24[0]} of the first 16 24-bit -8 frames differ "
                              f"between the CPU and the card ({diff24[1]} bytes)")
-    one_batch_24 = stage_batch("pallas", trace_pack=False, cfg=cfg8, frames=frames24)
+    one_batch_24 = stage_batch(trace_pack=False, cfg=cfg8, frames=frames24)
     graphed_batch_24 = graph_step_check(cfg8, frames24, dev, "level8_24bit")
     # -p and escape coding on a signal with full-scale bursts
     pcm_pe = burst_pcm(HIRES_RATE * PE_SECONDS, 24, seed=25)
@@ -2923,12 +2915,13 @@ def main() -> None:
     del short_title
 
     # --- 16. kernels line ---------------------------------------------------
-    def pack_row(name, merged, replaces, main_launches):
+    def pack_row(name, merged, replaces, main_launches, direct_launches=None):
         row = pack_rows[merged]
         t512, t64 = row["timing"]["B512"], row["timing"]["B64"]
         return {"name": name, "route": "cuda", "kernel": f"pack_frames_kernel<{str(merged).lower()}, true>",
                 "source": "flac_tpu_torch/csrc/pack_words.cu", "replaces": replaces,
                 "launches": main_launches,
+                **({} if direct_launches is None else {"launches_direct": direct_launches}),
                 "launches_cli": flac_launches["pack_words_multi" if merged else "pack_words"],
                 **({} if merged else {"launches_sharded": sharded_launches["pack_words"]}),
                 "bit_exact": all(c["max_abs_err"] == 0 for c in row["cases"]),
@@ -2941,7 +2934,8 @@ def main() -> None:
     ct512 = compact_timing[f"level5_batch_{DECODE_B}x{BLOCKSIZE}"]
     emit({"kernels": [
         pack_row("pack_words", False, "flac_tpu/encode/packer.py:443", launches),
-        pack_row("pack_words_multi", True, "flac_tpu/encode/packer.py:678",
+        # no path launches the merged fill: phase 5 calls it directly
+        pack_row("pack_words_multi", True, "flac_tpu/encode/packer.py:678", 0,
                  merged_launches), {
         "name": "residual_scan", "route": "cuda", "kernel": "subframe_scan",
         "source": "flac_tpu_torch/csrc/residual_scan.cu",

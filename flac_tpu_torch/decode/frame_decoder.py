@@ -32,7 +32,6 @@ decode in groups of one blocksize, with each frame's header width given
 from __future__ import annotations
 
 import functools
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -68,9 +67,10 @@ class DecoderGeometry:
     sample_rate: int
     max_lpc_order: int = 32
     check_assignment: bool = True
-    # "narrow" (8 int32 limbs), "wide" (4 int64 limbs) or "auto", which
-    # obeys FLAC_TPU_SCAN=narrow|wide and defaults to narrow; streams of
-    # more than 26 bits always take the wide scan
+    # "wide" takes the wide scan (4 int64 limbs); "auto" and "narrow" both
+    # take the narrow one (8 int32 limbs): "narrow" stays a value because
+    # flac_tpu's geometry has it and from_dict copies that geometry.
+    # Streams of more than 26 bits always take the wide scan.
     scan_impl: str = "auto"
     # variable-blocksize streams: the decode fn takes a third argument,
     # hdr_ext_bits [B], each frame's bits between the UTF-8 number and the
@@ -99,17 +99,13 @@ class _HeaderCfg:
 
 
 def _use_narrow_scan(geom: DecoderGeometry) -> bool:
-    """flac_tpu's rule: the int32-limb scan serves streams of at most 26
-    bits (so verbatim and escaped widths stay <= 31 bits); then
-    `scan_impl`, then FLAC_TPU_SCAN=narrow|wide; else narrow."""
+    """flac_tpu's rule, less its environment switch: the int32-limb scan
+    serves streams of at most 26 bits (so verbatim and escaped widths stay
+    <= 31 bits); then `scan_impl` ("wide" takes the wide scan); else
+    narrow."""
     if geom.bits_per_sample > 26:
         return False
-    if geom.scan_impl in ("narrow", "wide"):
-        return geom.scan_impl == "narrow"
-    forced = os.environ.get("FLAC_TPU_SCAN")
-    if forced in ("narrow", "wide"):
-        return forced == "narrow"
-    return True
+    return geom.scan_impl != "wide"
 
 
 # ---------------------------------------------------------------------------
@@ -652,8 +648,7 @@ def build_frame_decoder(geom: DecoderGeometry,
     [B, T, Ch] (int16 for <= 16 bits, else int32),
     end_bits [B] int64, meta dict of sync_ok, assignment, subframe_type,
     order, wasted, unary_overflow); inputs may be numpy arrays or tensors,
-    outputs are on the device. The scan choice (FLAC_TPU_SCAN) is read here,
-    outside the build cache, so that a change takes effect."""
+    outputs are on the device."""
     device = resolve_device(device)
     return _build_frame_decoder(geom, device, not _use_narrow_scan(geom))
 
@@ -739,10 +734,9 @@ def make_verifier(cfg, device: torch.device):
     stream_encoder.c:977-1006): fn(rows) -> (pcm [B, T, Ch] of the decoded
     frames, flagged [B] bool: the scan's `unary_overflow`, frames whose
     samples here are not theirs), on the device, one packed frame a row.
-    `rows` are int32 word rows [B, maxwords] (the padded layout) or uint8
-    byte rows [B, maxb] (flac_tpu's dense layout), on `device`; the rows
-    are decoded where they lie, back to back, plus the zero words
-    bytes_to_words appends."""
+    `rows` are uint8 byte rows [B, maxb] (flac_tpu's dense layout), on
+    `device`; the rows are decoded where they lie, back to back, plus the
+    zero words bytes_to_words appends."""
     geom = DecoderGeometry(blocksize=cfg.blocksize, channels=cfg.channels,
                            bits_per_sample=cfg.bits_per_sample,
                            sample_rate=cfg.sample_rate,
@@ -750,15 +744,9 @@ def make_verifier(cfg, device: torch.device):
     dec = build_frame_decoder(geom, device)
 
     def verify(rows: torch.Tensor) -> torch.Tensor:
-        B = rows.shape[0]
-        if rows.dtype == torch.uint8:
-            flat, row_bits = byte_rows_to_words(rows), rows.shape[1] * 8
-        else:
-            flat = torch.cat([rows.reshape(-1),
-                              torch.zeros(2, dtype=_I32, device=rows.device)])
-            row_bits = rows.shape[1] * 32
-        starts = torch.arange(B, dtype=_I64, device=rows.device) * row_bits
-        pcm, _end, meta = dec(flat, starts)
+        starts = torch.arange(rows.shape[0], dtype=_I64, device=rows.device) * (
+            rows.shape[1] * 8)
+        pcm, _end, meta = dec(byte_rows_to_words(rows), starts)
         return pcm, meta["unary_overflow"]
 
     return verify

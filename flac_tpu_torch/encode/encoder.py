@@ -6,12 +6,10 @@ onto the frame encoder, MD5 accumulation, STREAMINFO/seektable statistics
 and the seek-back rewrite at finish (update_metadata_ :2516).
 
 Frames are encoded in batches by encode.frame_encoder on the chosen device
-(None: CUDA). Two routes, flac_tpu's: on the card (or under
-FLAC_TPU_PACKER=pallas) the dense one, where each batch of full frames is
-compacted on the device into one word stream, of which only the valid
-prefix comes back and is written in one piece (`_emit_dense`); on the CPU
-the padded word matrix comes back and is written frame by frame (`_emit`).
-The final partial frame takes the second route in both, through
+(None: CUDA), on every device by flac_tpu's dense route: each batch of full
+frames is compacted on the device into one word stream, of which only the
+valid prefix comes back and is written in one piece (`_emit_dense`). The
+final partial frame comes back as its own word row, through
 frame_encoder.encode_tail: one length-generic step, replayed from its third
 call on, for every length at which the step's static choices are those of
 the full blocksize (at -5 16-bit, every length from 41 samples), and a step
@@ -72,8 +70,7 @@ from flac_tpu_torch.decode.frame_decoder import make_verifier
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.encode import packer
 from flac_tpu_torch.encode.frame_encoder import (
-    EncoderConfig, build_frame_encoder, build_frame_encoder_dense, encode_tail,
-    resolve_packer_impl, use_dense_packer)
+    EncoderConfig, build_frame_encoder_dense, encode_tail)
 from flac_tpu_torch.md5 import MD5Context
 from flac_tpu_torch.metadata import (
     MetadataBlock,
@@ -129,8 +126,6 @@ class StreamEncoder:
         with trace.span("encoder.open", stream=self._stream):
             self.cfg = config.resolve()
             self.device = resolve_device(device)
-            # the word fill is chosen once (FLAC_TPU_PACKER), for every build
-            self._packer_impl = resolve_packer_impl(None, self.device)
             self.out = out
             self.batch_frames = batch_frames
             self.do_md5 = do_md5
@@ -140,12 +135,9 @@ class StreamEncoder:
             self._md5_pending: list[futures.Future] = []
             self._buf = np.zeros((0, self.cfg.channels), np.int32)
             self._frame_no = 0
-            # the dense route compacts each batch on the device, so that only
-            # the compressed bytes cross to the host
-            self._dense = use_dense_packer(self.device)
-            build = build_frame_encoder_dense if self._dense else build_frame_encoder
-            self._encode = build(self.cfg, device=self.device,
-                                 packer_impl=self._packer_impl)
+            # each batch is compacted on the device, so that only the
+            # compressed bytes cross to the host
+            self._encode = build_frame_encoder_dense(self.cfg, device=self.device)
             self.stats = EncodeStats()
             self._finished = False
 
@@ -277,30 +269,19 @@ class StreamEncoder:
             batch = np.concatenate(
                 [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
         fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
-        if self._dense:
-            stream, total, total_bits, _info = self._encode(batch, fnos)
-            self.stats.batches += 1
-            with trace.span("encoder.copy_back"):
-                total_bits = total_bits.cpu().numpy()
-            if self.verify:
-                with self._verifying(nb):
-                    self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch,
-                                     total_bits)
-            with trace.span("encoder.copy_back"):
-                total = int(total)
-                host = stream[: (total + 3) // 4].cpu().numpy()
-            with trace.span("encoder.emit"):
-                self._emit_dense(host, total, total_bits, nb)
-        else:
-            words, total_bits, _info = self._encode(batch, fnos)
-            self.stats.batches += 1
-            if self.verify:
-                with self._verifying(nb):
-                    self._run_verify(words, nb, batch, total_bits)
-            with trace.span("encoder.copy_back"):
-                words, total_bits = words.cpu().numpy(), total_bits.cpu().numpy()
-            with trace.span("encoder.emit"):
-                self._emit(words, total_bits, nb)
+        stream, total, total_bits, _info = self._encode(batch, fnos)
+        self.stats.batches += 1
+        with trace.span("encoder.copy_back"):
+            total_bits = total_bits.cpu().numpy()
+        if self.verify:
+            with self._verifying(nb):
+                self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch,
+                                 total_bits)
+        with trace.span("encoder.copy_back"):
+            total = int(total)
+            host = stream[: (total + 3) // 4].cpu().numpy()
+        with trace.span("encoder.emit"):
+            self._emit_dense(host, total, total_bits, nb)
         self._frame_no += nb
         self.stats.samples += nb * self.cfg.blocksize
 
@@ -322,19 +303,6 @@ class StreamEncoder:
         self.stats.frames += 1
         self.stats.min_framesize = min(self.stats.min_framesize, n)
         self.stats.max_framesize = max(self.stats.max_framesize, n)
-
-    def _emit(self, words: np.ndarray, total_bits: np.ndarray,
-              nframes: int) -> None:
-        """Write the batch's first `nframes` frames from the padded word
-        matrix, one write a frame."""
-        byte_view = words.astype(">u4").view(np.uint8).reshape(words.shape[0], -1)
-        lengths = (total_bits + 7) // 8
-        for i in range(nframes):
-            n = int(lengths[i])
-            assert total_bits[i] % 8 == 0
-            assert n <= byte_view.shape[1], "frame overflowed static pack buffer"
-            self.out.write(byte_view[i, :n].tobytes())
-            self._frame_written(i, n)
 
     def _emit_dense(self, host_words: np.ndarray, total: int,
                     total_bits: np.ndarray, nframes: int) -> None:
@@ -372,9 +340,9 @@ class StreamEncoder:
         stream_encoder.c:314,977-1006): decode the frames where they were
         packed and compare them with the input PCM; a frame the scan flags
         is decoded on the host from its own bytes and compared instead.
-        `rows` are the padded word rows (int32 [B, W]) or the dense route's
-        byte rows (uint8 [nframes, maxb]); `total_bits` each frame's length
-        in bits. Raises VerifyError at the first frame that differs."""
+        `rows` are the batch's byte rows (uint8 [nframes, maxb],
+        `_dense_rows`); `total_bits` each frame's length in bits. Raises
+        VerifyError at the first frame that differs."""
         got, flagged = self._verifier(rows)
         got = got[:nframes].to(torch.int32)
         want = torch.as_tensor(pcm_batch[:nframes], device=self.device)
@@ -403,11 +371,8 @@ class StreamEncoder:
 
     @staticmethod
     def _frame_bytes(rows: torch.Tensor, f: int, total_bits) -> bytes:
-        """Frame f's bytes, from its word or byte row."""
-        row = rows[f].cpu().numpy()
-        if row.dtype != np.uint8:
-            row = row.astype(">u4").view(np.uint8)
-        return row[: (int(total_bits[f]) + 7) // 8].tobytes()
+        """Frame f's bytes, from its byte row."""
+        return rows[f, : (int(total_bits[f]) + 7) // 8].cpu().numpy().tobytes()
 
     def _verify_on_host(self, data: bytes, want: np.ndarray, frame: int) -> None:
         """Decode frame number `frame` from its own bytes on the host (the
@@ -465,8 +430,7 @@ class StreamEncoder:
         """The final partial frame, by frame_encoder.encode_tail: the
         length-generic tail step, or a step built for its length."""
         rem = tail.shape[0]
-        words, total_bits, _info = encode_tail(self.cfg, tail, self._frame_no,
-                                               self.device, self._packer_impl)
+        words, total_bits, _info = encode_tail(self.cfg, tail, self._frame_no, self.device)
         self.stats.batches += 1
         with trace.span("encoder.copy_back"):
             words, total_bits = words[0].cpu().numpy(), int(total_bits[0])

@@ -8,8 +8,9 @@ loops (stream_encoder.c:2920-3660) become tensor axes
   [M] model candidates (fixed orders, LPC per window) x [T] samples
 
 reduced by the reference's strict-< argmin rules, and the bitstream is
-assembled by the prefix-sum field packer (encode.packer), whose word fill is
-the hand-written CUDA kernel on a GPU.
+assembled by the prefix-sum field packer (encode.packer), whose banded word
+fill is the hand-written CUDA kernel on a GPU (the merged fill is reached
+through encode.packer alone).
 
 Every preset (levels 0-8, the exhaustive model search of 7-8 included),
 the -p precision sweep, escape coding, and both residual datapaths
@@ -34,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -262,36 +262,8 @@ def _abs_plane(res: torch.Tensor, narrow: bool) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-PACKER_IMPLS = ("pallas", "merged", "xla")
-
-
-def resolve_packer_impl(packer_impl: str | None, device: torch.device) -> str:
-    """The word-fill choice, resolved at build time so that it is part of
-    the build cache's key (flipping the variable mid-process takes effect on
-    the next build instead of being silently ignored).
-
-    None reads FLAC_TPU_PACKER=pallas|merged|xla, or the legacy
-    FLAC_TPU_PACK=merged; unset means "pallas". "pallas" is the banded fill
-    (csrc/pack_words.cu), "merged" the merged-slot fill (the same file's
-    multi kernel), "xla" the plain PyTorch fill, which serves the tests only
-    and is refused on a CUDA device. On the CPU every choice runs the plain
-    versions."""
-    if packer_impl is None:
-        packer_impl = os.environ.get("FLAC_TPU_PACKER")
-        if packer_impl is None and os.environ.get("FLAC_TPU_PACK") == "merged":
-            packer_impl = "merged"
-        packer_impl = packer_impl or "pallas"
-    if packer_impl not in PACKER_IMPLS:
-        raise ValueError(f"unknown packer {packer_impl!r}; one of {PACKER_IMPLS}")
-    if packer_impl == "xla" and device.type == "cuda":
-        raise ValueError("the plain ('xla') word fill serves the CPU tests only; "
-                         "on a CUDA device use 'pallas' or 'merged'")
-    return packer_impl
-
-
 def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
-                        device: str | torch.device | None = None,
-                        packer_impl: str | None = None):
+                        device: str | torch.device | None = None):
     """The encoder for a batch of equal-size frames on `device` (None: CUDA,
     which raises without a GPU). Returns fn(pcm [B, T, Ch] int, frame_numbers
     [B] int) -> (words [B, maxwords] int32, total_bits [B] int32, info dict),
@@ -300,46 +272,26 @@ def build_frame_encoder(cfg: EncoderConfig, blocksize: int | None = None,
     the shape's third call on, with fresh outputs each call.
 
     `blocksize` overrides cfg.blocksize for a final partial frame that
-    encode_tail does not give the length-generic step;
-    `packer_impl` selects the word fill (see resolve_packer_impl).
-    FLAC_TPU_WIDE=int64 is read here too (see _build_frame_encoder).
+    encode_tail does not give the length-generic step.
     """
-    device = resolve_device(device)
-    return _graphed_full(cfg, blocksize, device, resolve_packer_impl(packer_impl, device),
-                         _wide_int64())
+    return _graphed_full(cfg, blocksize, resolve_device(device))
 
 
 @functools.lru_cache(maxsize=64)
-def _graphed_full(cfg: EncoderConfig, blocksize: int | None, device: torch.device,
-                  packer_impl: str, wide_int64: bool) -> graphs.GraphedStep:
+def _graphed_full(cfg: EncoderConfig, blocksize: int | None,
+                  device: torch.device) -> graphs.GraphedStep:
     with trace.span("step.build"):  # runs on a miss of the cache only
-        full = _build_frame_encoder(cfg, blocksize, device, packer_impl, wide_int64)[0]
-    return graphs.GraphedStep(full, _step_name("encode", cfg, blocksize, packer_impl),
-                              device)
+        full = _build_frame_encoder(cfg, blocksize, device)[0]
+    return graphs.GraphedStep(full, _step_name("encode", cfg, blocksize), device)
 
 
-def _step_name(kind: str, cfg: EncoderConfig, blocksize: int | None,
-               packer_impl: str) -> str:
+def _step_name(kind: str, cfg: EncoderConfig, blocksize: int | None) -> str:
     return (f"{kind} step ({cfg.channels} ch, {cfg.bits_per_sample}-bit, "
-            f"T={blocksize or cfg.blocksize}, {packer_impl} fill)")
-
-
-def use_dense_packer(device: torch.device) -> bool:
-    """flac_tpu's `_use_pallas_packer` rule for the dense path, read when a
-    stream encoder is built: FLAC_TPU_PACKER=pallas forces it, =xla never
-    takes it, and otherwise the device decides: CUDA encodes through the
-    dense path (with either fill), the CPU does not."""
-    forced = os.environ.get("FLAC_TPU_PACKER")
-    if forced == "pallas":
-        return True
-    if forced == "xla":
-        return False
-    return device.type == "cuda"
+            f"T={blocksize or cfg.blocksize})")
 
 
 def build_frame_encoder_dense(cfg: EncoderConfig,
-                              device: str | torch.device | None = None,
-                              packer_impl: str | None = None):
+                              device: str | torch.device | None = None):
     """build_frame_encoder with the packed frames compacted into one dense
     word stream on the device, so that the host fetches about the
     compressed size instead of the padded word matrix. Returns fn(pcm [B,
@@ -348,24 +300,20 @@ def build_frame_encoder_dense(cfg: EncoderConfig,
     total_bytes int64 scalar, total_bits [B] int32, info dict), on the
     device; on CUDA the whole step, compaction included, is one CUDA graph
     a batch shape (see build_frame_encoder)."""
-    device = resolve_device(device)
-    return _graphed_dense(cfg, device, resolve_packer_impl(packer_impl, device),
-                          _wide_int64())
+    return _graphed_dense(cfg, resolve_device(device))
 
 
 @functools.lru_cache(maxsize=64)
-def _graphed_dense(cfg: EncoderConfig, device: torch.device, packer_impl: str,
-                   wide_int64: bool) -> graphs.GraphedStep:
+def _graphed_dense(cfg: EncoderConfig, device: torch.device) -> graphs.GraphedStep:
     with trace.span("step.build"):
-        full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64)[0]
+        full = _build_frame_encoder(cfg, None, device)[0]
 
     def encode_dense(pcm, frame_numbers):
         words, total_bits, info = full(pcm, frame_numbers)
         stream, total = packer.compact_stream_words_kernel(words, total_bits)
         return stream, total, total_bits, info
 
-    return graphs.GraphedStep(encode_dense, _step_name("dense encode", cfg, None,
-                                                       packer_impl), device)
+    return graphs.GraphedStep(encode_dense, _step_name("dense encode", cfg, None), device)
 
 
 # final partial frames encoded by the length-generic tail step, and by a
@@ -374,8 +322,7 @@ tail_steps = 0
 tail_builds = 0
 
 
-def build_tail_encoder(cfg: EncoderConfig, device: str | torch.device | None = None,
-                       packer_impl: str | None = None):
+def build_tail_encoder(cfg: EncoderConfig, device: str | torch.device | None = None):
     """The length-generic step for a stream's final partial frame, one a
     configuration: the frame's length is data, not shape, so that every
     eligible length (tail_takes_generic_step) shares one CUDA graph. Returns
@@ -386,19 +333,14 @@ def build_tail_encoder(cfg: EncoderConfig, device: str | torch.device | None = N
     the (words [1, maxwords], total_bits [1], info) of build_frame_encoder's
     step for n, maxwords that of the full blocksize. `tail_inputs` makes
     the last three."""
-    device = resolve_device(device)
-    return _graphed_tail(cfg, device, resolve_packer_impl(packer_impl, device),
-                         _wide_int64())
+    return _graphed_tail(cfg, resolve_device(device))
 
 
 @functools.lru_cache(maxsize=64)
-def _graphed_tail(cfg: EncoderConfig, device: torch.device, packer_impl: str,
-                  wide_int64: bool) -> graphs.GraphedStep:
+def _graphed_tail(cfg: EncoderConfig, device: torch.device) -> graphs.GraphedStep:
     with trace.span("step.build"):
-        full = _build_frame_encoder(cfg, None, device, packer_impl, wide_int64,
-                                    generic=True)[0]
-    return graphs.GraphedStep(full, _step_name("tail encode", cfg, None, packer_impl),
-                              device)
+        full = _build_frame_encoder(cfg, None, device, generic=True)[0]
+    return graphs.GraphedStep(full, _step_name("tail encode", cfg, None), device)
 
 
 def tail_inputs(cfg: EncoderConfig, tail: np.ndarray, frame_number: int
@@ -411,15 +353,14 @@ def tail_inputs(cfg: EncoderConfig, tail: np.ndarray, frame_number: int
     bs_code, bs_ext_bits, bs_ext_val = _header_static_codes(cfg, n)[:3]
     lens = np.asarray([n, bs_code, bs_ext_bits, bs_ext_val], np.int64)
     bank = np.zeros((0, T), np.float32)
-    if _length_plan(cfg, T, _wide_int64()).do_lpc:
+    if _length_plan(cfg, T).do_lpc:
         bank = np.zeros((len(cfg.apodizations), T), np.float32)
         bank[:, :n] = dsp_windows.make_window_bank(cfg.apodizations, n)
     return pcm, np.asarray([frame_number], np.int64), lens, bank
 
 
 def encode_tail(cfg: EncoderConfig, tail: np.ndarray, frame_number: int,
-                device: str | torch.device | None = None,
-                packer_impl: str | None = None):
+                device: str | torch.device | None = None):
     """Encode a stream's final partial frame, tail [n, Ch] with 0 < n <
     cfg.blocksize, as frame `frame_number`. Returns (words [1, W] int32,
     total_bits [1] int32, info), on the device. The length decides the
@@ -427,35 +368,21 @@ def encode_tail(cfg: EncoderConfig, tail: np.ndarray, frame_number: int,
     (counted in tail_steps), else a step built for n (tail_builds)."""
     global tail_steps, tail_builds
     device = resolve_device(device)
-    packer_impl = resolve_packer_impl(packer_impl, device)
-    wide_int64 = _wide_int64()
-    if tail_takes_generic_step(cfg, tail.shape[0], wide_int64):
+    if tail_takes_generic_step(cfg, tail.shape[0]):
         tail_steps += 1
-        step = _graphed_tail(cfg, device, packer_impl, wide_int64)
-        return step(*tail_inputs(cfg, tail, frame_number))
+        return _graphed_tail(cfg, device)(*tail_inputs(cfg, tail, frame_number))
     tail_builds += 1
-    step = _graphed_full(cfg, tail.shape[0], device, packer_impl, wide_int64)
+    step = _graphed_full(cfg, tail.shape[0], device)
     return step(tail[None], np.asarray([frame_number], np.int64))
 
 
 def build_frame_encoder_parts(cfg: EncoderConfig, blocksize: int | None = None,
-                              device: str | torch.device | None = None,
-                              packer_impl: str | None = None):
+                              device: str | torch.device | None = None):
     """The split form: (fields_fn, pack_fn). fields_fn(pcm, fnos) -> (values,
     nbits, info) is the candidate search + field assembly; pack_fn(values,
     nbits) -> (words, total_bits) the word fill and CRC-16. Both run eagerly
     on every device, as flac_tpu's parts are not jitted."""
-    device = resolve_device(device)
-    return _build_frame_encoder(cfg, blocksize, device,
-                                resolve_packer_impl(packer_impl, device),
-                                _wide_int64())[1:]
-
-
-def _wide_int64() -> bool:
-    """FLAC_TPU_WIDE=int64 sends the wide datapath through int64 even where
-    the two-limb residual applies, as in flac_tpu. Read at build time so
-    that it is part of the build cache's key."""
-    return os.environ.get("FLAC_TPU_WIDE") == "int64"
+    return _build_frame_encoder(cfg, blocksize, resolve_device(device))[1:]
 
 
 @dataclass(frozen=True)
@@ -472,7 +399,7 @@ class _LengthPlan:
     narrow_lpc: bool
 
 
-def _length_plan(cfg: EncoderConfig, T: int, wide_int64: bool) -> _LengthPlan:
+def _length_plan(cfg: EncoderConfig, T: int) -> _LengthPlan:
     use_ms = cfg.do_mid_side and cfg.channels == 2
     maxord = min(cfg.max_lpc_order, T - 1)
     use_wide = cfg.bits_per_sample + (T.bit_length() - 1) + 1 > 30  # stream_encoder.c:888
@@ -483,8 +410,7 @@ def _length_plan(cfg: EncoderConfig, T: int, wide_int64: bool) -> _LengthPlan:
     pmax = C.MAX_QLP_COEFF_PRECISION
     wide_limbs = (use_wide and bps_worst <= 25 and maxord >= 1
                   and maxord * (1 << (pmax + max(bps_worst - 14, 0))) < (1 << 31)
-                  and maxord * (1 << (pmax + 11)) < (1 << 31)
-                  and not wide_int64)
+                  and maxord * (1 << (pmax + 11)) < (1 << 31))
     # int32 accumulation of the LPC prediction is exact iff bps + precision
     # + ilog2(order) <= 32 (stream_encoder.c:3592), with the static worst
     # case. Under -p the per-candidate caps (stream_encoder.c:3341-3345,
@@ -509,26 +435,22 @@ def _length_plan(cfg: EncoderConfig, T: int, wide_int64: bool) -> _LengthPlan:
         narrow_lpc=narrow_lpc)
 
 
-def tail_takes_generic_step(cfg: EncoderConfig, n: int,
-                            wide_int64: bool | None = None) -> bool:
+def tail_takes_generic_step(cfg: EncoderConfig, n: int) -> bool:
     """Whether a final partial frame of n samples is encoded by the
     length-generic tail step (build_tail_encoder): where every static
     choice of the step has at n its value at cfg.blocksize, and, with LPC
     on, every autocorrelation lag is longer than one XLA tree window
     (dsp.lpc.autocorrelation_placed). Otherwise a step is built for n."""
-    if wide_int64 is None:
-        wide_int64 = _wide_int64()
     if not 0 < n < cfg.blocksize:
         return False
-    plan = _length_plan(cfg, cfg.blocksize, wide_int64)
-    return (_length_plan(cfg, n, wide_int64) == plan
+    plan = _length_plan(cfg, cfg.blocksize)
+    return (_length_plan(cfg, n) == plan
             and (not plan.do_lpc or n - plan.maxord > dsp_lpc._XLA_TREE_WINDOW))
 
 
 @functools.lru_cache(maxsize=64)
 def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
-                         device: torch.device, packer_impl: str,
-                         wide_int64: bool, generic: bool = False):
+                         device: torch.device, generic: bool = False):
     """The step's functions for frames of `blocksize` samples (None: the
     configuration's). generic=True builds the length-generic tail step:
     frames of cfg.blocksize samples of which the first n are the frame,
@@ -541,7 +463,7 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
     use_ms = cfg.do_mid_side and Ch == 2
     K = 4 if use_ms else Ch
     limit = cfg.rice_parameter_limit
-    plan = _length_plan(cfg, T, wide_int64)
+    plan = _length_plan(cfg, T)
     max_fixed, maxord, do_lpc = plan.max_fixed, plan.maxord, plan.do_lpc
     A = len(cfg.apodizations) if do_lpc else 0
     exhaustive = cfg.do_exhaustive_model_search
@@ -1026,14 +948,12 @@ def _build_frame_encoder(cfg: EncoderConfig, blocksize: int | None,
                     exact_subframe_bits=sel_exact_bits)
         return values.contiguous(), nbits.contiguous(), info
 
-    merged = packer_impl == "merged"
-
     def pack(values, nbits):
-        """Word fill + CRC-16 from the packed words: one CUDA kernel launch
-        for CUDA tensors, the plain composition for CPU tensors (where
-        "pallas" and "xla" are the same plain banded fill)."""
+        """Word fill (the banded one) + CRC-16 from the packed words: one
+        CUDA kernel launch for CUDA tensors, the plain composition for CPU
+        tensors."""
         return packer.pack_frames_kernel(values, nbits, maxwords, crc16_wtbl,
-                                         crc16_winv, merged)
+                                         crc16_winv)
 
     def full(pcm, frame_numbers, *per_length):
         values, nbits, info = encode(pcm, frame_numbers, *per_length)

@@ -11,11 +11,12 @@ fill and CRC-16) for CUDA tensors, and the plain PyTorch `pack_frames`
 (`pack_fields`, `crc16_from_words`, `insert_crc16`) for CPU tensors.
 `pack_fields_kernel` / `pack_fields` is the word fill alone. The merged
 packer (`pack_fields_merged_kernel` / plain `pack_fields_merged`, or
-`merged=True`) fills the same words from merged field quads. Field values
-MUST be pre-masked to their nbits. The dense route's compaction of a
-batch's packed frames into one word stream has the same two versions
-behind `compact_stream_words_kernel`: one launch of csrc/compact_stream.cu
-for CUDA tensors, the plain `compact_stream_words` for CPU tensors.
+`merged=True`) fills the same words from merged field quads; the frame
+encoder packs with the banded fill. Field values MUST be pre-masked to
+their nbits. The dense route's compaction of a batch's packed frames into
+one word stream has the same two versions behind
+`compact_stream_words_kernel`: one launch of csrc/compact_stream.cu for
+CUDA tensors, the plain `compact_stream_words` for CPU tensors.
 
 torch has no uint32 shifts and no XOR reduction, so the uint32 arithmetic
 of flac_tpu runs here in int64 with explicit 32-bit masks, and XOR sums go
@@ -129,7 +130,7 @@ def pack_fields_kernel(values: torch.Tensor, nbits: torch.Tensor, maxwords: int
 
 
 # ---------------------------------------------------------------------------
-# Merged-field pack (FLAC_TPU_PACKER=merged): two pairwise merge rounds turn
+# Merged-field pack: two pairwise merge rounds turn
 # F fields into F/4 merged slots of <= 63 significant bits plus two spill
 # arrays, each slot with <= 3 word contributions (flac_tpu's
 # pack_fields_pallas_merged). A pair (e1 < e2) merges into v1 << d | v2,

@@ -11,16 +11,17 @@ process in the same checkout (`same_card.py --probe`, with that checkout's
 flac_tpu_torch and this checkout's timing code) takes:
 
 - the 60 s level-5 stream of chip_smoke.py's main path and its SHA-256;
-- the wall of 5 more encodes of it with each fill, the fills in turns, and
-  the device's idle share of one more under torch.profiler (its busy time
-  over the median banded wall);
+- the wall of 5 more encodes of it, and the device's idle share of one
+  more under torch.profiler (its busy time over the median wall);
 - the SHA-256 of chip_smoke.py's 30 s 24-bit -8 stream, of its 10 s -p and
   escape-coding stream and of its 28- and 32-bit streams, and the wall of 3
   more encodes of the 24-bit stream;
-- the device time of that version's pack() stage, of its fill-only
+- the device time of that version's pack stage with each fill
+  (packer.pack_frames_kernel, banded and merged), of its fill-only
   wrappers (packer.pack_fields_kernel, packer.pack_fields_merged_kernel)
   and of its fill kernel's launches alone, their inputs staged beforehand,
-  at B=64 and B=512, by replays of a CUDA graph (chip_smoke.graph_ms).
+  on build_frame_encoder_parts' fields at B=64 and B=512, by replays of a
+  CUDA graph (chip_smoke.graph_ms).
 
 The logs go to same_card_logs/ in this checkout. Every SHA-256 that a run
 of chip_smoke.py prints (a key ending in "sha256" in its JSON lines) is
@@ -97,16 +98,13 @@ def probe() -> dict:
         encode_file(pcm, cs.SAMPLE_RATE, 16, path, level=5)
         with open(path, "rb") as f:
             out["stream_sha256"] = hashlib.sha256(f.read()).hexdigest()
-        walls = {"pallas": [], "merged": []}
+        walls = []
         for _ in range(5):
-            for impl, w in walls.items():
-                os.environ["FLAC_TPU_PACKER"] = impl
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                encode_file(pcm, cs.SAMPLE_RATE, 16, path, level=5)
-                torch.cuda.synchronize()
-                w.append(time.perf_counter() - t0)
-        os.environ.pop("FLAC_TPU_PACKER")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encode_file(pcm, cs.SAMPLE_RATE, 16, path, level=5)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             encode_file(pcm, cs.SAMPLE_RATE, 16, path, level=5)
@@ -116,7 +114,7 @@ def probe() -> dict:
         busy_s = cs.busy_ms(spans) / 1e3 if spans else None
         out["encode_device_busy_s"] = busy_s
         out["encode_device_idle_share"] = (None if busy_s is None else
-                                           1 - busy_s / float(np.median(walls["pallas"])))
+                                           1 - busy_s / float(np.median(walls)))
         pcm24 = cs.make_pcm(cs.HIRES_RATE * cs.HIRES_SECONDS, seed=24, rate=cs.HIRES_RATE,
                             bits=24)
         hires = []
@@ -139,21 +137,24 @@ def probe() -> dict:
                                     sigma=2.0 ** 18), cs.SAMPLE_RATE, bps, path, level=5)
             with open(path, "rb") as f:
                 out[f"wide{bps}_stream_sha256"] = hashlib.sha256(f.read()).hexdigest()
-    for impl, w in walls.items():
-        out[f"encode_wall_s_{impl}"] = w
-        out[f"encode_wall_s_{impl}_median"] = float(np.median(w))
+    out["encode_wall_s"] = walls
+    out["encode_wall_s_median"] = float(np.median(walls))
     cfg = EncoderConfig.from_level(5, 2, 16, cs.SAMPLE_RATE)
     frames = pcm[: len(pcm) // cs.BLOCKSIZE * cs.BLOCKSIZE].reshape(-1, cs.BLOCKSIZE, 2)
     fills = {"pallas": packer.pack_fields_kernel, "merged": packer.pack_fields_merged_kernel}
-    for impl, fill in fills.items():
-        fields_fn, pack_fn = build_frame_encoder_parts(cfg, device="cuda", packer_impl=impl)
-        for B in (64, 512):
-            v, n, _ = fields_fn(frames[:B], np.arange(B))
-            maxwords = pack_fn(v, n)[0].shape[1]
-            out[f"pack_graph_ms_{impl}_B{B}"] = cs.graph_ms(lambda: pack_fn(v, n))
+    fields_fn, pack_fn = build_frame_encoder_parts(cfg, device="cuda")
+    for B in (64, 512):
+        v, n, _ = fields_fn(frames[:B], np.arange(B))
+        maxwords = pack_fn(v, n)[0].shape[1]
+        tbl, inv = (torch.as_tensor(t, device="cuda")
+                    for t in packer.crc16_word_tables(maxwords))
+        for impl, fill in fills.items():
+            merged = impl == "merged"
+            out[f"pack_graph_ms_{impl}_B{B}"] = cs.graph_ms(
+                lambda: packer.pack_frames_kernel(v, n, maxwords, tbl, inv, merged))
             out[f"fill_graph_ms_{impl}_B{B}"] = cs.graph_ms(lambda: fill(v, n, maxwords))
             out[f"kernel_graph_ms_{impl}_B{B}"] = cs.graph_ms(
-                _fill_launches(pw, packer, impl == "merged", v, n, maxwords))
+                _fill_launches(pw, packer, merged, v, n, maxwords))
     return out
 
 

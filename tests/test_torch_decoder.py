@@ -301,23 +301,22 @@ def test_geometry_and_words_match():
                                           j_fd.bytes_to_words(data[:n], bucket))
 
 
-@pytest.mark.parametrize("geom,env", [
+@pytest.mark.parametrize("geom,scan", [
     (dict(GEOM, bits_per_sample=32), None),
     (dict(GEOM, scan_impl="wide"), None),
-    (GEOM, "wide"),
+    (dict(GEOM, bits_per_sample=24), "wide"),
     (dict(GEOM, dynamic_header_ext=True), None),
 ])
-def test_unported_decoder_paths_raise(monkeypatch, geom, env):
+def test_unported_decoder_paths_raise(geom, scan):
     """Every case raised once and now builds a decoder: the first three on
-    the wide scan, the last with per-frame header widths."""
-    if env:
-        monkeypatch.setenv("FLAC_TPU_SCAN", env)
+    the wide scan (above 26 bits, or `scan_impl="wide"` at 16 and at 24
+    bits), the last with per-frame header widths."""
+    if scan:
+        geom = dict(geom, scan_impl=scan)
     g = t_fd.DecoderGeometry(**geom)
-    if g.dynamic_header_ext:
-        assert callable(t_fd.build_frame_decoder(g, device="cpu"))
-    else:
+    if not g.dynamic_header_ext:
         assert not t_fd._use_narrow_scan(g)
-        assert callable(t_fd.build_frame_decoder(g, device="cpu"))
+    assert callable(t_fd.build_frame_decoder(g, device="cpu"))
 
 
 @pytest.mark.cuda

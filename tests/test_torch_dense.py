@@ -3,12 +3,12 @@
 The plain compaction (`compact_stream_words`, `compact_stream_bytes`) is
 held against flac_tpu's jitted one bit for bit, on the four generated cases
 of tests/test_dense_path.py::TestCompaction (seed 123) and on a real level-5
-batch. `StreamEncoder` forced onto the dense route (FLAC_TPU_PACKER=pallas,
-as flac_tpu's is forced in tests/test_dense_path.py) must write the port's
-non-dense bytes and flac_tpu's dense bytes, seektable included, and its
-verify must pass or raise as flac_tpu's dense verify does, with the same
-message. The CUDA kernel is held against the plain version on the card
-(`-m cuda`, and chip_smoke.py)."""
+batch. `StreamEncoder`, which takes the dense route on every device, must
+write flac_tpu's dense bytes (flac_tpu's encoder forced onto its dense
+route as tests/test_dense_path.py forces it), seektable included, and its
+verify must pass where flac_tpu's dense verify passes, and on the frames
+the scan flags, where flac_tpu's raises. The CUDA kernel is held against
+the plain version on the card (`-m cuda`, and chip_smoke.py)."""
 
 from __future__ import annotations
 
@@ -112,20 +112,6 @@ def test_cpu_tensors_take_the_plain_compaction():
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
-def test_dense_route_rule(monkeypatch):
-    """flac_tpu's _use_pallas_packer rule: pallas forces the dense route,
-    xla never takes it, otherwise the device decides."""
-    cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
-    assert not t_fe.use_dense_packer(cpu) and t_fe.use_dense_packer(cuda)
-    monkeypatch.setenv("FLAC_TPU_PACKER", "merged")
-    assert not t_fe.use_dense_packer(cpu) and t_fe.use_dense_packer(cuda)
-    monkeypatch.setenv("FLAC_TPU_PACKER", "pallas")
-    assert t_fe.use_dense_packer(cpu)
-    monkeypatch.setenv("FLAC_TPU_PACKER", "xla")
-    assert not t_fe.use_dense_packer(cpu) and not t_fe.use_dense_packer(cuda)
-
-
 def _encode_jax(sig, dense, bps=16, **kw):
     """flac_tpu's StreamEncoder, forced dense as tests/test_dense_path.py
     forces it."""
@@ -142,48 +128,39 @@ def _encode_jax(sig, dense, bps=16, **kw):
     return out.getvalue()
 
 
-def _encode_torch(sig, monkeypatch, dense, bps=16, **kw):
-    """The port's StreamEncoder on the CPU; FLAC_TPU_PACKER=pallas takes the
-    dense route (set only around the port's build: flac_tpu reads it too)."""
-    if dense:
-        monkeypatch.setenv("FLAC_TPU_PACKER", "pallas")
-    else:
-        monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
+def _encode_torch(sig, bps=16, **kw):
+    """The port's StreamEncoder on the CPU (the dense route, as on every
+    device)."""
     cfg = t_fe.EncoderConfig.from_level(5, channels=sig.shape[1], bits_per_sample=bps,
                                         sample_rate=44100, blocksize=T)
     out = io.BytesIO()
     enc = t_enc.StreamEncoder(cfg, out, batch_frames=4, total_samples_estimate=len(sig),
                               device="cpu", **kw)
-    monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
-    assert enc._dense == dense
     enc.process(sig)
     enc.finish()
     return out.getvalue(), enc.stats
 
 
-def _check_dense_bytes(sig, monkeypatch, bps=16, **kw):
-    """Batches of 4 and 2 frames and a partial frame: the dense route's bytes
-    equal the non-dense route's and flac_tpu's dense ones. Returns them."""
-    monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
+def _check_dense_bytes(sig, bps=16, **kw):
+    """Batches of 4 and 2 frames and a partial frame: the port's bytes equal
+    flac_tpu's dense ones. Returns them."""
     ref = _encode_jax(sig, True, bps=bps, **kw)
     before = compact_stream.launches
-    dense, stats = _encode_torch(sig, monkeypatch, True, bps=bps, **kw)
-    plain, _ = _encode_torch(sig, monkeypatch, False, bps=bps, **kw)
+    dense, stats = _encode_torch(sig, bps=bps, **kw)
     assert dense == ref
-    assert plain == dense
     assert stats.batches == 3 and stats.frames == 7
     assert compact_stream.launches == before  # the CPU takes the plain compaction
     return dense
 
 
-def test_dense_stream_encoder_bytes_match(monkeypatch):
+def test_dense_stream_encoder_bytes_match():
     """_check_dense_bytes on a quiet stereo signal, seektable filled."""
     sig = make_signal(T * 6 + 321, 2, 16, kind="quiet", seed=77)
-    _check_dense_bytes(sig, monkeypatch, seekpoints=[0, 2048, 5000])
+    _check_dense_bytes(sig, seekpoints=[0, 2048, 5000])
 
 
 @pytest.mark.parametrize("case", ["near_silent_8bit_mono", "constant_stereo"])
-def test_dense_stream_encoder_bytes_match_tiny_frames(monkeypatch, case):
+def test_dense_stream_encoder_bytes_match_tiny_frames(case):
     """_check_dense_bytes on signals whose frames are 10 to 150 bytes
     (constant subframes, one-bit residuals): the frames that the
     compaction's output-driven grid packs many to a chunk on the card."""
@@ -193,14 +170,14 @@ def test_dense_stream_encoder_bytes_match_tiny_frames(monkeypatch, case):
         sig[rng.integers(2 * T, len(sig), 12), 0] = rng.choice([-1, 1], 12)
     else:
         bps, sig = 16, make_signal(T * 6 + 97, 2, 16, kind="constant")
-    dense = _check_dense_bytes(sig, monkeypatch, bps=bps)
+    dense = _check_dense_bytes(sig, bps=bps)
     # STREAMINFO's max framesize: tens of frames to a 2,048-byte chunk
     max_frame_bytes = int.from_bytes(dense[15:18], "big")
     assert 0 < max_frame_bytes < (160 if case == "near_silent_8bit_mono" else 32)
 
 
 @pytest.mark.parametrize("case", ["sine_passes", "flagged_24bit_port_verifies"])
-def test_dense_verify_matches_flac_tpu(monkeypatch, case):
+def test_dense_verify_matches_flac_tpu(case):
     """Dense verify decodes flac_tpu's byte rows (the first nframes frames,
     maxb bytes each, zero past each frame). On a sine it passes. On the
     near-silent 24-bit frames with full-scale spikes of
@@ -208,11 +185,10 @@ def test_dense_verify_matches_flac_tpu(monkeypatch, case):
     flags, flac_tpu raises VerifyError (ROADMAP queue 3); the port decodes
     the flagged frames on the host, verifies the stream and writes
     flac_tpu's dense verify=False bytes."""
-    monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
     if case == "sine_passes":
         bps, sig = 16, make_signal(T * 4 + 11, 2, 16, kind="sine", seed=78)
         ref = _encode_jax(sig, True, verify=True)
-        got, _ = _encode_torch(sig, monkeypatch, True, verify=True)
+        got, _ = _encode_torch(sig, verify=True)
         assert got == ref
         return
     bps, rng = 24, np.random.default_rng(3)
@@ -222,7 +198,7 @@ def test_dense_verify_matches_flac_tpu(monkeypatch, case):
     with pytest.raises(j_enc.VerifyError):
         _encode_jax(x, True, bps=bps, verify=True)
     before = t_enc.verify_host_frames
-    got, stats = _encode_torch(x, monkeypatch, True, bps=bps, verify=True)
+    got, stats = _encode_torch(x, bps=bps, verify=True)
     assert got == _encode_jax(x, True, bps=bps)
     assert t_enc.verify_host_frames - before >= 1 and stats.frames == 4
 

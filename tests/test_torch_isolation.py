@@ -1,10 +1,12 @@
 """The port's boundaries: flac_tpu_torch imports neither JAX nor flac_tpu,
-its entry points default to CUDA and raise without a GPU, CPU tensors take
-the plain versions without touching a launch counter, and the launchers
-refuse CPU tensors instead of computing anything."""
+reads no environment variable but its deployment settings, its entry points
+default to CUDA and raise without a GPU, CPU tensors take the plain versions
+without touching a launch counter, and the launchers refuse CPU tensors
+instead of computing anything."""
 
 from __future__ import annotations
 
+import ast
 import io
 import os
 import subprocess
@@ -156,17 +158,48 @@ def test_surface_entry_points_raise_without_gpu(no_cuda, tmp_path, monkeypatch):
         t_ogg.decode_ogg_flac(b"OggS")
 
 
-def test_plain_word_fill_is_refused_on_cuda(monkeypatch):
-    """FLAC_TPU_PACKER=xla serves the CPU tests only: a CUDA build refuses
-    it (resolved before anything touches the card)."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    cfg = t_fe.EncoderConfig.from_level(5, 2, 16, 44100)
-    monkeypatch.setenv("FLAC_TPU_PACKER", "xla")
-    with pytest.raises(ValueError, match="CPU tests only"):
-        t_fe.build_frame_encoder(cfg, device="cuda")
-    with pytest.raises(ValueError, match="CPU tests only"):
-        t_fe.build_frame_encoder_parts(cfg, device="cuda", packer_impl="xla")
-    assert t_fe.resolve_packer_impl(None, torch.device("cpu")) == "xla"
+# what a deployment sets: the CLI's device, the CUDA toolkit, a rank's card
+DEPLOYMENT_SETTINGS = {"FLAC_TPU_DEVICE", "CUDA_HOME", "LOCAL_RANK"}
+_ENV_NAMES = ("environ", "environb", "getenv", "getenvb")
+
+
+def _environment_reads(tree: ast.Module) -> list[tuple[str | None, int]]:
+    """(variable, line) of every use of os.environ or os.getenv in a module:
+    the variable a subscript, `.get(...)` or call names by a string
+    constant, else None."""
+    parents = {child: node for node in ast.walk(tree)
+               for child in ast.iter_child_nodes(node)}
+    reads = []
+    for node in ast.walk(tree):
+        name = (node.attr if isinstance(node, ast.Attribute)
+                else node.id if isinstance(node, ast.Name) else None)
+        if name not in _ENV_NAMES:
+            continue
+        up = parents.get(node)
+        key = None
+        if isinstance(up, ast.Subscript) and up.value is node:
+            key = up.slice
+        elif isinstance(up, ast.Attribute) and up.attr == "get":
+            call = parents.get(up)
+            if isinstance(call, ast.Call) and call.args:
+                key = call.args[0]
+        elif isinstance(up, ast.Call) and up.func is node and up.args:
+            key = up.args[0]
+        const = isinstance(key, ast.Constant) and isinstance(key.value, str)
+        reads.append((key.value if const else None, node.lineno))
+    return reads
+
+
+def test_only_deployment_settings_are_read_from_the_environment():
+    """No module of flac_tpu_torch selects a behaviour by an environment
+    variable: it reads FLAC_TPU_DEVICE, CUDA_HOME and LOCAL_RANK alone, each
+    by name."""
+    root = REPO / "flac_tpu_torch"
+    found = {}
+    for path in sorted(root.rglob("*.py")):
+        for name, line in _environment_reads(ast.parse(path.read_text())):
+            found.setdefault(name, []).append(f"{path.relative_to(REPO)}:{line}")
+    assert set(found) == DEPLOYMENT_SETTINGS, found
 
 
 def test_cpu_tensors_take_the_plain_fill_and_cuda_only_the_kernel():

@@ -71,18 +71,24 @@ def test_plain_pack_frames_matches_flac_tpu(name, merged):
 
 @pytest.mark.parametrize("impl", ["pallas", "merged"])
 def test_pack_stage_matches_flac_tpu(impl):
-    """build_frame_encoder_parts' pack() on one level-5 stereo batch (B=4,
-    T=1024) against flac_tpu's pack stage on the same fields."""
+    """build_frame_encoder_parts' fields of one level-5 stereo batch (B=4,
+    T=1024) through pack_frames with each fill, and through the parts'
+    pack() (the banded fill), against flac_tpu's pack stage on the same
+    fields."""
     B, T = 4, 1024
     tc = t_fe.EncoderConfig.from_level(5, 2, 16, 44100, blocksize=T)
     jc = j_fe.EncoderConfig.from_level(5, 2, 16, 44100, blocksize=T)
-    fields_fn, pack_fn = t_fe.build_frame_encoder_parts(tc, device="cpu", packer_impl=impl)
+    fields_fn, pack_fn = t_fe.build_frame_encoder_parts(tc, device="cpu")
     values, nbits, _ = fields_fn(_tiny_pcm(B, T), np.arange(B, dtype=np.int64))
     _, j_pack = j_fe.build_frame_encoder_parts(jc, packer_impl="xla")
     ref_w, ref_t = jax.jit(j_pack)(values.numpy(), nbits.numpy())
-    got_w, got_t = pack_fn(values, nbits)
-    np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
-    np.testing.assert_array_equal(got_w.numpy(), np.asarray(ref_w))
+    maxwords = t_fe.max_frame_bytes(tc, T) // 4
+    tbl, inv = (torch.as_tensor(t) for t in t_packer.crc16_word_tables(maxwords))
+    for got_w, got_t in (t_packer.pack_frames(values, nbits, maxwords, tbl, inv,
+                                              merged=impl == "merged"),
+                         pack_fn(values, nbits)):
+        np.testing.assert_array_equal(got_t.numpy(), np.asarray(ref_t))
+        np.testing.assert_array_equal(got_w.numpy(), np.asarray(ref_w))
 
 
 def _cuda_case(name):

@@ -1,4 +1,4 @@
-"""The port's plain merged word fill (FLAC_TPU_PACKER=merged) against
+"""The port's plain merged word fill (`packer.pack_fields_merged`) against
 flac_tpu's pack_fields_pallas_merged in interpret mode, bit for bit, on the
 random cases of tests/test_packer_pallas.py (inputs from their seeds,
 numpy). The degenerate cases are in test_torch_packer.py; interpret mode

@@ -66,7 +66,7 @@ def recorder():
 def encoded():
     """The stream encoded with the recorder on and off, and the spans."""
     pcm = _pcm()
-    frame_encoder._graphed_full.cache_clear()  # a build at open and at the tail
+    frame_encoder._graphed_dense.cache_clear()  # a build at open and at the tail
     frame_encoder._graphed_tail.cache_clear()
     trace.start()
     try:
@@ -79,8 +79,9 @@ def encoded():
 def test_encode_records_the_span_tree(encoded):
     _pcm_in, on, off, spans = encoded
     assert on == off
+    # the bit counts back, then the compacted stream's prefix
     batch = [(1, "encoder.batch"), (2, "step.eager"), (2, "encoder.copy_back"),
-             (2, "encoder.emit")]
+             (2, "encoder.copy_back"), (2, "encoder.emit")]
     main = [s for s in spans if s[0] != "encoder.md5"]
     assert _tree(main) == [
         (0, "encoder.open"), (1, "step.build"),

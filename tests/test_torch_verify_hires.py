@@ -1,9 +1,11 @@
-"""`flac -8 -V` on 24-bit streams, on the CPU, on the padded route and on
-the dense one: verify compares every frame with its input before it is
-written. A batch's frames are decoded where they were packed; the frames
-the narrow scan flags, and the final partial frame, are decoded on the host
-from their own bytes. The input holds a near-silent frame, a full-scale
-burst that the scan flags, full-scale outliers and a partial frame.
+"""`flac -8 -V` on 24-bit streams, on the CPU, in batches of 4 frames and
+of 3: verify compares every frame with its input before it is written. A
+batch's frames are decoded where they were packed; the frames the narrow
+scan flags, and the final partial frame, are decoded on the host from their
+own bytes. The input holds a near-silent frame, a full-scale burst that the
+scan flags, full-scale outliers and a partial frame. In batches of 3 the
+fourth frame is alone in a second batch, padded by repetition, so that the
+frame numbers verify reports cross a batch boundary.
 
 The plain reference decoder (cardbench/reference/flac.py, PyTorch alone)
 decodes the stream to its input, and the samples verify compared, device
@@ -23,7 +25,7 @@ from flac_tpu_torch.encode import encoder as t_enc
 from flac_tpu_torch.encode import frame_encoder as t_fe
 
 T = 1024
-FRAMES = 5  # four full frames, one batch, and the partial one
+FRAMES = 5  # four full frames and the partial one
 FLAGGED = 1  # the frame of the full-scale burst
 TAIL = 300
 
@@ -51,19 +53,12 @@ def _pcm() -> np.ndarray:
 PCM = _pcm()
 
 
-def _encode(monkeypatch, route: str, verify: bool) -> tuple[bytes, t_enc.EncodeStats]:
-    """One stream at -8, four frames a batch; FLAC_TPU_PACKER=pallas takes
-    the dense route on the CPU (read when the encoder is built)."""
-    if route == "dense":
-        monkeypatch.setenv("FLAC_TPU_PACKER", "pallas")
-    else:
-        monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
+def _encode(batch_frames: int, verify: bool) -> tuple[bytes, t_enc.EncodeStats]:
+    """One stream at -8, `batch_frames` frames a batch."""
     cfg = t_fe.EncoderConfig.from_level(8, 2, 24, 96000, blocksize=T)
     out = io.BytesIO()
-    enc = t_enc.StreamEncoder(cfg, out, batch_frames=4, total_samples_estimate=len(PCM),
-                              verify=verify, device="cpu")
-    monkeypatch.delenv("FLAC_TPU_PACKER", raising=False)
-    assert enc._dense == (route == "dense")
+    enc = t_enc.StreamEncoder(cfg, out, batch_frames=batch_frames,
+                              total_samples_estimate=len(PCM), verify=verify, device="cpu")
     enc.process(PCM)
     enc.finish()
     return out.getvalue(), enc.stats
@@ -71,18 +66,15 @@ def _encode(monkeypatch, route: str, verify: bool) -> tuple[bytes, t_enc.EncodeS
 
 @pytest.fixture(scope="module")
 def unverified() -> bytes:
-    """The verify=False stream (the same bytes on both routes)."""
-    mp = pytest.MonkeyPatch()
-    try:
-        return _encode(mp, "padded", False)[0]
-    finally:
-        mp.undo()
+    """The verify=False stream (the same bytes in batches of 4 and of 3)."""
+    return _encode(4, False)[0]
 
 
-def _spy(monkeypatch, corrupt_device=None, corrupt_host=None) -> dict:
+def _spy(monkeypatch, batch_frames, corrupt_device=None, corrupt_host=None) -> dict:
     """Record what verify compares: the verifier's (pcm, flagged) of each
     batch and each host decode's (frame number, pcm); optionally alter a
-    sample of either, as a fault of that decode would."""
+    sample of either, as a fault of that decode would. A batch's first
+    frame is `batch_frames` times the batches seen before it."""
     seen = {"device": [], "host": []}
     make = t_enc.make_verifier
 
@@ -92,8 +84,11 @@ def _spy(monkeypatch, corrupt_device=None, corrupt_host=None) -> dict:
         def spy(rows):
             pcm, flagged = verify(rows)
             if corrupt_device is not None:
-                pcm = pcm.clone()
-                pcm[corrupt_device] += 1
+                frame, sample, channel = corrupt_device
+                f = frame - batch_frames * len(seen["device"])
+                if 0 <= f < len(pcm):
+                    pcm = pcm.clone()
+                    pcm[f, sample, channel] += 1
             seen["device"].append((pcm.numpy().copy(), flagged.numpy().copy()))
             return pcm, flagged
         return spy
@@ -113,19 +108,22 @@ def _spy(monkeypatch, corrupt_device=None, corrupt_host=None) -> dict:
     return seen
 
 
-@pytest.mark.parametrize("route", ["padded", "dense"])
+@pytest.mark.parametrize("batch_frames", [4, 3])
 def test_verify_passes_compares_every_frame_and_writes_the_same_bytes(
-        monkeypatch, unverified, route):
-    seen = _spy(monkeypatch)
+        monkeypatch, unverified, batch_frames):
+    seen = _spy(monkeypatch, batch_frames)
     before = (t_enc.verified_frames, t_enc.verify_host_frames, t_enc.verify_ns)
-    data, stats = _encode(monkeypatch, route, True)
+    data, stats = _encode(batch_frames, True)
     assert data == unverified
     assert stats.frames == FRAMES
     # every frame compared; the flagged one and the tail on the host
     assert t_enc.verified_frames - before[0] == FRAMES
     assert t_enc.verify_host_frames - before[1] == FLAGGED + 1
     assert t_enc.verify_ns > before[2]
-    (dev_pcm, flagged), = seen["device"]
+    # one verifier call a batch, on its frames alone (not the padding)
+    assert [len(p) for p, _ in seen["device"]] == ([4] if batch_frames == 4 else [3, 1])
+    dev_pcm = np.concatenate([p for p, _ in seen["device"]])
+    flagged = np.concatenate([f for _, f in seen["device"]])
     assert np.flatnonzero(flagged).tolist() == [FLAGGED]
     assert [f for f, _ in seen["host"]] == [FLAGGED, FRAMES - 1]
 
@@ -140,20 +138,20 @@ def test_verify_passes_compares_every_frame_and_writes_the_same_bytes(
         np.testing.assert_array_equal(pcm, frames[f])
 
 
-@pytest.mark.parametrize("route", ["padded", "dense"])
+@pytest.mark.parametrize("batch_frames", [4, 3])
 @pytest.mark.parametrize("where,frame,sample,channel", [
     ("flagged_host", FLAGGED, 700, 1),
-    ("device", 2, 7, 0),
+    ("device", 3, 7, 0),
     ("tail", FRAMES - 1, 250, 1),
 ])
-def test_a_corrupted_sample_raises_naming_its_frame(monkeypatch, route, where, frame,
-                                                    sample, channel):
+def test_a_corrupted_sample_raises_naming_its_frame(monkeypatch, batch_frames, where,
+                                                    frame, sample, channel):
     if where == "device":
-        _spy(monkeypatch, corrupt_device=(frame, sample, channel))
+        _spy(monkeypatch, batch_frames, corrupt_device=(frame, sample, channel))
     else:
-        _spy(monkeypatch, corrupt_host=(frame, sample, channel))
+        _spy(monkeypatch, batch_frames, corrupt_host=(frame, sample, channel))
     want = int(PCM[frame * T + sample, channel])
     with pytest.raises(t_enc.VerifyError,
                        match=rf"verify mismatch at frame {frame} sample {sample} "
                              rf"channel {channel}: expected {want}, got {want + 1}$"):
-        _encode(monkeypatch, route, True)
+        _encode(batch_frames, True)

@@ -14,8 +14,7 @@ CPU, jitted):
   `fold_residual(narrow=False)` at 24 and 32 bits;
 - `build_frame_encoder` at level 5 on 28-bit (mid-side on: a 29-bit side
   channel, the int64 LPC path) and 32-bit (mid-side off, 32-bit verbatim
-  fields) stereo, and at 24 bits under FLAC_TPU_WIDE=int64: words, bit
-  counts and every info array.
+  fields) stereo: words, bit counts and every info array.
 
 Equality throughout: every output is an integer.
 """
@@ -150,28 +149,3 @@ def test_wide_frame_encoder_matches(bps):
     info = _frame_encoders_match(bps, 44100, _tonal(bps, seed=bps))
     assert (info["subframe_type"] == 3).any()  # the int64 LPC path chose LPC
     assert (info["subframe_type"] == 1).any()  # and the noise frame verbatim
-
-
-def test_wide_int64_env_matches(monkeypatch):
-    """FLAC_TPU_WIDE=int64 sends a 24-bit stream through the int64 LPC
-    residual instead of the two limbs (read when the encoder is built): the
-    outputs are flac_tpu's under the same variable, and the limb path's."""
-    sig = _tonal(24, seed=5)
-    calls = []
-    limbs = t_lpc.lpc_residual_limbs
-    monkeypatch.setattr(t_lpc, "lpc_residual_limbs",
-                        lambda *a, **k: calls.append(1) or limbs(*a, **k))
-    # configurations no other test builds: flac_tpu's build cache is keyed
-    # by the config alone, so each build below reads the variable afresh
-    with_limbs = _frame_encoders_match(24, 96000, sig, max_lpc_order=7)
-    assert calls
-    monkeypatch.setenv("FLAC_TPU_WIDE", "int64")
-    calls.clear()
-    int64 = _frame_encoders_match(24, 96000, sig, max_lpc_order=7, max_partition_order=4)
-    assert not calls
-    tc = t_fe.EncoderConfig.from_level(5, 2, 24, 96000, blocksize=T, max_lpc_order=7)
-    tw, tt, tinfo = t_fe.build_frame_encoder(tc, device="cpu")(sig, np.arange(4))
-    assert not calls
-    for k in with_limbs:
-        np.testing.assert_array_equal(tinfo[k].numpy(), with_limbs[k].numpy(), err_msg=k)
-    assert (int64["subframe_type"] == 3).any()
