@@ -15,6 +15,25 @@ call on, for every length at which the step's static choices are those of
 the full blocksize (at -5 16-bit, every length from 41 samples), and a step
 built for the length below that.
 
+On CUDA the batches of full frames run two deep: batch k+1's step is
+launched (its host inputs through graphs.GraphedStep's page-locked
+staging, its outputs started towards page-locked host buffers behind it,
+with one event) before batch k is copied back, verified and written, so
+the card runs one batch's step while the host finishes the one before.
+The batch still in flight is carried across process() calls and drained
+by finish(): the remaining full frames' batch is launched, then the final
+partial frame's step, then every earlier batch is written, then the tail.
+So on CUDA process() may return with one batch's bytes not yet written;
+they, and its VerifyError if any, come by the next process() or by
+finish(). The stats and the progress they feed count what was written.
+On the CPU the step is synchronous and the depth is 1: each batch is
+written before the next is launched. The pipeline's counters, over the
+process: `pipeline_batches` (batches of full frames launched),
+`pipelined_batches` (those launched while an earlier batch of the same
+stream was unfinished) and `pipeline_wait_ns` (main-thread host-clock
+nanoseconds spent waiting for a batch's event, inside its first
+`encoder.copy_back`).
+
 With `verify=True` (flac -V) every frame is decoded and compared with its
 input before it is written. A batch of full frames is decoded where it was
 packed (decode.frame_decoder's verifier); the frames its scan flags
@@ -29,7 +48,9 @@ Each StreamEncoder is one request of flac_tpu_torch.trace, from its
 construction to finish(); its stages are the spans `encoder.open`,
 `encoder.process`, `encoder.buffer`, `encoder.batch` (one a step call),
 `encoder.copy_back`, `encoder.verify` (child `encoder.verify_host`, a host
-decode), `encoder.emit`, `encoder.md5_wait`, `encoder.finish`,
+decode), `encoder.emit` (the last three a batch's finish: on CUDA inside
+the next batch's `encoder.batch`, or inside the `encoder.tail` or
+`encoder.finish` that drains it), `encoder.md5_wait`, `encoder.finish`,
 `encoder.tail` and `encoder.streaminfo`, and `encoder.md5` on the MD5
 worker thread, its parent the span that handed the update over. Verify's
 counters, over the process: `verified_frames` (frames compared with their
@@ -57,6 +78,7 @@ import functools
 import io
 import os
 import time
+from collections import deque
 from concurrent import futures
 from dataclasses import dataclass, replace
 
@@ -96,6 +118,11 @@ verify_ns = 0
 md5_updates = 0
 md5_wait_ns = 0
 
+# the pipeline's counters, over the process (module docstring)
+pipeline_batches = 0
+pipelined_batches = 0
+pipeline_wait_ns = 0
+
 
 @dataclass
 class EncodeStats:
@@ -105,6 +132,21 @@ class EncodeStats:
     min_framesize: int = (1 << 31) - 1
     max_framesize: int = 0
     batches: int = 0  # frame-encoder calls, the final partial frame included
+
+
+@dataclass
+class _Launched:
+    """A batch of full frames whose step has been called: its padded input
+    (verify compares with it), how many of its frames are real, the
+    compacted stream on the device, the host copies of (stream, total,
+    total_bits), and the event after those copies (None where the step ran
+    synchronously, on the CPU)."""
+
+    pcm: np.ndarray
+    nframes: int
+    stream: torch.Tensor
+    host: tuple
+    ready: torch.cuda.Event | None
 
 
 class StreamEncoder:
@@ -134,7 +176,12 @@ class StreamEncoder:
             self._md5_worker: futures.ThreadPoolExecutor | None = None
             self._md5_pending: list[futures.Future] = []
             self._buf = np.zeros((0, self.cfg.channels), np.int32)
-            self._frame_no = 0
+            self._frame_no = 0  # frames written
+            self._launched_frames = 0  # frames whose step was called
+            # batches launched and not yet written, oldest first; at most
+            # pipeline_depth - 1 of them between two calls
+            self._in_flight: deque[_Launched] = deque()
+            self.pipeline_depth = 2 if self.device.type == "cuda" else 1
             # each batch is compacted on the device, so that only the
             # compressed bytes cross to the host
             self._encode = build_frame_encoder_dense(self.cfg, device=self.device)
@@ -232,7 +279,9 @@ class StreamEncoder:
         B = self.batch_frames
         for start in range(0, nframes, B):
             with trace.span("encoder.batch"):
-                self._encode_batch(frames[start : start + B])
+                self._launch_batch(frames[start : start + B])
+                if len(self._in_flight) >= self.pipeline_depth:
+                    self._finish_batch()
 
     def _hash(self, samples: np.ndarray) -> None:
         """Hand the MD5 update over `samples` to the process's MD5 worker,
@@ -259,31 +308,69 @@ class StreamEncoder:
             f.result()
         md5_updates += len(pending)
 
-    def _encode_batch(self, batch: np.ndarray) -> None:
-        """One step call over a batch of full frames (padded to the static
-        batch size, the padded outputs dropped), its copy back, verify and
-        emit."""
+    def _launch_batch(self, batch: np.ndarray) -> None:
+        """The launch half of a batch of full frames: one step call (padded
+        to the static batch size), its outputs started towards the host,
+        the batch queued for _finish_batch."""
+        global pipeline_batches, pipelined_batches
         B = self.batch_frames
         nb = batch.shape[0]
         if nb < B:
             batch = np.concatenate(
                 [batch, np.repeat(batch[-1:], B - nb, axis=0)], axis=0)
-        fnos = np.arange(self._frame_no, self._frame_no + B, dtype=np.int64)
+        fnos = np.arange(self._launched_frames, self._launched_frames + B, dtype=np.int64)
         stream, total, total_bits, _info = self._encode(batch, fnos)
+        pipeline_batches += 1
+        pipelined_batches += bool(self._in_flight)
+        self._launched_frames += nb
+        # the whole stream (a bound on its valid prefix), so that nothing
+        # waits for `total` before the next launch
+        host, ready = self._start_copy_back((stream, total, total_bits))
+        self._in_flight.append(_Launched(batch, nb, stream, host, ready))
+
+    def _start_copy_back(self, tensors: tuple) -> tuple:
+        """(host copies of `tensors`, the event after them): on CUDA
+        non-blocking copies into page-locked buffers behind the step on the
+        stream; on the CPU the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        return host, ready
+
+    def _finish_batch(self) -> None:
+        """The finish half of the oldest batch launched: wait for its copy
+        back, verify it (the padded outputs dropped) and write it."""
+        global pipeline_wait_ns
+        launched = self._in_flight.popleft()
+        nb = launched.nframes
+        host_stream, total, total_bits = launched.host
         self.stats.batches += 1
         with trace.span("encoder.copy_back"):
-            total_bits = total_bits.cpu().numpy()
+            if launched.ready is not None:
+                t0 = time.perf_counter_ns()
+                launched.ready.synchronize()
+                pipeline_wait_ns += time.perf_counter_ns() - t0
+            total_bits = total_bits.numpy()
         if self.verify:
             with self._verifying(nb):
-                self._run_verify(self._dense_rows(stream, total_bits, nb), nb, batch,
-                                 total_bits)
+                self._run_verify(self._dense_rows(launched.stream, total_bits, nb), nb,
+                                 launched.pcm, total_bits)
         with trace.span("encoder.copy_back"):
             total = int(total)
-            host = stream[: (total + 3) // 4].cpu().numpy()
+            host = host_stream[: (total + 3) // 4].numpy()
         with trace.span("encoder.emit"):
             self._emit_dense(host, total, total_bits, nb)
         self._frame_no += nb
         self.stats.samples += nb * self.cfg.blocksize
+
+    def _drain(self) -> None:
+        """Write every batch still in flight, oldest first."""
+        while self._in_flight:
+            self._finish_batch()
 
     def _frame_written(self, i: int, n: int) -> None:
         """Stats and the seektable fill-in of the batch's frame i, of n
@@ -407,7 +494,8 @@ class StreamEncoder:
         with trace.span("encoder.finish", stream=self._stream):
             bs = self.cfg.blocksize
             try:
-                # flush whole frames first, then the final partial frame
+                # launch the whole frames first, then the final partial
+                # frame, then write them in that order
                 nfull = self._buf.shape[0] // bs
                 if nfull:
                     chunk = self._buf[: bs * nfull]
@@ -420,6 +508,7 @@ class StreamEncoder:
                         self._hash(tail)
                     with trace.span("encoder.tail"):
                         self._encode_tail(tail)
+                self._drain()
             finally:
                 self._md5_barrier()  # the digest is read below
             self._finished = True
@@ -428,9 +517,14 @@ class StreamEncoder:
 
     def _encode_tail(self, tail: np.ndarray) -> None:
         """The final partial frame, by frame_encoder.encode_tail: the
-        length-generic tail step, or a step built for its length."""
+        length-generic tail step, or a step built for its length. Its step
+        is launched before the batches still in flight are written, and it
+        is written after them."""
         rem = tail.shape[0]
-        words, total_bits, _info = encode_tail(self.cfg, tail, self._frame_no, self.device)
+        words, total_bits, _info = encode_tail(self.cfg, tail, self._launched_frames,
+                                               self.device)
+        self._launched_frames += 1
+        self._drain()
         self.stats.batches += 1
         with trace.span("encoder.copy_back"):
             words, total_bits = words[0].cpu().numpy(), int(total_bits[0])
