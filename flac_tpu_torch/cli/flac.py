@@ -10,7 +10,9 @@ options, foreign-chunk preservation, and the undocumented --disable-*
 debug flags.
 
 The port of flac_tpu.cli.flac. FLAC_TPU_DEVICE names the torch device the
-codec runs on; unset, it is CUDA, which raises without a GPU.
+codec runs on; unset, it is CUDA, which raises without a GPU. An encode
+records the span `cli.encode` a file and, with --replay-gain,
+`cli.replaygain` around the album's tagging (`flac_tpu_torch.trace`).
 
 Usage: python -m flac_tpu_torch.cli.flac [options] [infile [...]]
 """
@@ -20,6 +22,7 @@ from __future__ import annotations
 import os
 import sys
 
+from flac_tpu_torch import trace
 from flac_tpu_torch.containers import (
     AudioBuffer,
     aiff_bytes,
@@ -1462,7 +1465,8 @@ def main(argv: list[str] | None = None) -> int:
         for idx, path in enumerate(o.files):
             try:
                 if o.mode == "encode":
-                    rc |= encode_one(path, o, is_last=idx == len(o.files) - 1)
+                    with trace.span("cli.encode"):
+                        rc |= encode_one(path, o, is_last=idx == len(o.files) - 1)
                     if o.replay_gain and not o.to_stdout:
                         encoded_outputs.append(o.output_name or
                                                _default_outname(path, o))
@@ -1478,7 +1482,8 @@ def main(argv: list[str] | None = None) -> int:
         if o.mode == "encode" and o.replay_gain and encoded_outputs and rc == 0:
             # all files of one invocation form one album (main.c:511-518)
             from flac_tpu_torch.replaygain import add_replay_gain_tags
-            add_replay_gain_tags(encoded_outputs, device=o.device)
+            with trace.span("cli.replaygain"):
+                add_replay_gain_tags(encoded_outputs, device=o.device)
         return rc
     except CLIError as e:
         print(f"ERROR: {e}", file=sys.stderr)

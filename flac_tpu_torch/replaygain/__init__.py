@@ -17,15 +17,27 @@ titles under LAUNCH_BYTES), on CPU tensors the plain `iir_filter` twice a
 title. The window statistics stay on the host in numpy, as in flac_tpu, on
 the filtered signal copied back once a title, so the gain depends only on
 the filter's output.
+
+Tagging an album (`add_replay_gain_tags`) records the spans
+`replaygain.decode` (a title's decode), `replaygain.filter` (a launch of
+`equal_loudness_album` and the wait for it), `replaygain.copy_back` and
+`replaygain.windows` (a title's filtered output copied back, and its window
+statistics) and `replaygain.tags` (a file's tags stored), and keeps
+counters over the process: `replaygain_ns` (host-clock nanoseconds inside
+`add_replay_gain_tags`), `replaygain_titles` (titles analysed by
+`compute_replay_gain`) and `replaygain_decode_ns` (host-clock nanoseconds
+of their decodes).
 """
 
 from __future__ import annotations
 
+import time
 from fractions import Fraction
 
 import numpy as np
 import torch
 
+from flac_tpu_torch import trace
 from flac_tpu_torch.device import resolve_device
 from flac_tpu_torch.kernels import iir_scan
 from flac_tpu_torch.metadata import MetadataChain, VorbisComment, get_tags
@@ -51,6 +63,10 @@ TAG_TITLE_GAIN = "REPLAYGAIN_TRACK_GAIN"
 TAG_TITLE_PEAK = "REPLAYGAIN_TRACK_PEAK"
 TAG_ALBUM_GAIN = "REPLAYGAIN_ALBUM_GAIN"
 TAG_ALBUM_PEAK = "REPLAYGAIN_ALBUM_PEAK"
+
+replaygain_ns = 0
+replaygain_titles = 0
+replaygain_decode_ns = 0
 
 
 class ReplayGainError(Exception):
@@ -284,22 +300,34 @@ def compute_replay_gain(paths: list[str], device: str | torch.device | None = No
     window statistics and gains taken in order."""
     from flac_tpu_torch.decode.stream import decode_bytes_device
 
+    global replaygain_decode_ns
     analysis: GainAnalysis | None = None
     titles: list[tuple[float, float]] = []
     pending: list[tuple[torch.Tensor, float]] = []  # scaled, not yet filtered
     pending_bytes = 0
 
     def finish_pending() -> None:
-        ys = equal_loudness_album([x for x, _ in pending], analysis.freq_index)
+        global replaygain_titles
+        with trace.span("replaygain.filter"):
+            ys = equal_loudness_album([x for x, _ in pending], analysis.freq_index)
+            if ys and ys[0].device.type == "cuda":
+                torch.cuda.current_stream(ys[0].device).synchronize()
         for y, (_, peak) in zip(ys, pending):
-            analysis.add_windows(y.cpu().numpy())
+            with trace.span("replaygain.copy_back"):
+                out = y.cpu().numpy()
+            with trace.span("replaygain.windows"):
+                analysis.add_windows(out)
             titles.append((analysis.title_gain(), peak))
+            replaygain_titles += 1
         pending.clear()
 
     for p in paths:
         with open(p, "rb") as f:
             data = f.read()
-        pcm, si, _ = decode_bytes_device(data, check_md5=False, device=device)
+        t0 = time.perf_counter_ns()
+        with trace.span("replaygain.decode"):
+            pcm, si, _ = decode_bytes_device(data, check_md5=False, device=device)
+        replaygain_decode_ns += time.perf_counter_ns() - t0
         if analysis is None:
             analysis = GainAnalysis(si.sample_rate, device=device)
         elif si.sample_rate != analysis.sample_rate:
@@ -341,9 +369,15 @@ def add_replay_gain_tags(paths: list[str],
     """The `flac --replay-gain` / `metaflac --add-replay-gain` workflow:
     all files form one album (main.c:511-518); decoded and filtered on
     `device` (None: CUDA)."""
-    album_gain, album_peak, titles = compute_replay_gain(paths, device=device)
-    for p, (tg, tp) in zip(paths, titles):
-        store_tags(p, album_gain, album_peak, tg, tp)
+    global replaygain_ns
+    t0 = time.perf_counter_ns()
+    try:
+        album_gain, album_peak, titles = compute_replay_gain(paths, device=device)
+        for p, (tg, tp) in zip(paths, titles):
+            with trace.span("replaygain.tags"):
+                store_tags(p, album_gain, album_peak, tg, tp)
+    finally:
+        replaygain_ns += time.perf_counter_ns() - t0
 
 
 def load_tags(path: str, album: bool) -> tuple[float, float] | None:
